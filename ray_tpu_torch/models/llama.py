@@ -1,0 +1,304 @@
+"""Llama-family transformer, training half (counterpart of
+ray_tpu/models/llama.py).
+
+* Params are a plain dict of tensors with the reference's keys and layouts:
+  per-layer weights are stacked on a leading ``[n_layers]`` axis, and weights
+  are ``[in, out]`` (``x @ W``), so weights convert from the JAX tree with
+  no transposes (``models/convert.py``).
+* The block stack is a Python loop over ``unbind(0)`` of the stacked weights
+  (the reference's ``lax.scan``); unbind's backward stacks the per-layer
+  grads once.
+* Compute in ``cfg.dtype`` (bf16), params in ``cfg.param_dtype`` (f32),
+  softmax/norm/rope in f32.
+* Remat: ``remat_policy="nothing"`` checkpoints each block whole;
+  ``"dots"`` saves matmul outputs (``aten.mm``) and recomputes the rest via
+  selective checkpointing; ``remat_save_attn`` also saves the flash
+  forward's outputs, so the backward does not rerun the forward kernel.
+* Attention goes to the flash kernels or the dense path (``_attention``).
+
+Not in this slice: MoE, LoRA, ring/Ulysses attention and the decode half.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+# registers the ray_tpu_torch::flash_fwd op that remat_save_attn names
+import ray_tpu_torch.ops.cuda.flash_attention  # noqa: F401
+from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.cross_entropy import fused_lm_head_cross_entropy
+from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    hidden_dim: int = 11008
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    remat_save_attn: bool = False
+    # "dots": save matmul outputs; "nothing": recompute the whole block
+    remat_policy: str = "dots"
+    # "auto" | "xla" | "flash" ("ring" | "ulysses" are not ported yet)
+    attn_impl: str = "auto"
+    # tiles of the plain flash version (the CUDA kernel picks its own)
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    seq_axis: str = "seq"
+    lora_alpha: float = 16.0
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
+
+    @property
+    def moe(self) -> bool:
+        return self.moe_num_experts > 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs per token (fwd+bwd, 6ND rule plus
+        attention quadratic term)."""
+        n_params = self.num_params(include_embed=False)
+        attn = 12 * self.n_layers * self.dim * self.max_seq_len
+        return 6 * n_params + attn
+
+    def num_params(self, include_embed: bool = True) -> int:
+        d, h = self.dim, self.hidden_dim
+        kv_dim = self.n_kv_heads * self.head_dim
+        per_layer = (d * d + 2 * d * kv_dim + d * d) + 3 * d * h + 2 * d
+        total = self.n_layers * per_layer + d
+        if include_embed:
+            total += self.vocab_size * d
+            if not self.tie_embeddings:
+                total += d * self.vocab_size
+        return total
+
+
+# ----------------------------------------------------------------- presets
+PRESETS: dict[str, dict] = {
+    # debug-size model for tests
+    "debug": dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                  n_kv_heads=2, hidden_dim=128, max_seq_len=128),
+    "160m": dict(vocab_size=32000, dim=768, n_layers=12, n_heads=12,
+                 n_kv_heads=12, hidden_dim=2048, max_seq_len=2048),
+    "410m": dict(vocab_size=32000, dim=1024, n_layers=24, n_heads=16,
+                 n_kv_heads=16, hidden_dim=2816, max_seq_len=2048),
+    # same params/FLOPs as 410m with head_dim=128 (8x128 instead of 16x64)
+    "410m-hd128": dict(vocab_size=32000, dim=1024, n_layers=24, n_heads=8,
+                       n_kv_heads=8, hidden_dim=2816, max_seq_len=2048),
+    "1b": dict(vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
+               n_kv_heads=8, hidden_dim=5632, max_seq_len=2048),
+    "llama2-7b": dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                      n_kv_heads=32, hidden_dim=11008, max_seq_len=4096),
+    "llama2-13b": dict(vocab_size=32000, dim=5120, n_layers=40, n_heads=40,
+                       n_kv_heads=40, hidden_dim=13824, max_seq_len=4096),
+    "llama3-8b": dict(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                      n_kv_heads=8, hidden_dim=14336, max_seq_len=8192,
+                      rope_theta=500000.0),
+    "llama2-70b": dict(vocab_size=32000, dim=8192, n_layers=80, n_heads=64,
+                       n_kv_heads=8, hidden_dim=28672, max_seq_len=4096),
+}
+
+
+def config_for(name: str, **overrides) -> LlamaConfig:
+    if name not in PRESETS:
+        raise ValueError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+    kw = dict(PRESETS[name])
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
+def _check_ported(cfg: LlamaConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError("MoE layers are not ported yet")
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} needs the multi-GPU slice")
+
+
+# ------------------------------------------------------------------- params
+def param_shapes(cfg: LlamaConfig) -> dict:
+    """The parameter tree of ``init_params`` with shapes as leaves."""
+    _check_ported(cfg)
+    d, h, L = cfg.dim, cfg.hidden_dim, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    shapes = {
+        "embed": (cfg.vocab_size, d),
+        "layers": {
+            "wq": (L, d, nh * hd),
+            "wk": (L, d, nkv * hd),
+            "wv": (L, d, nkv * hd),
+            "wo": (L, nh * hd, d),
+            "attn_norm": (L, d),
+            "mlp_norm": (L, d),
+            "w_gate": (L, d, h),
+            "w_up": (L, d, h),
+            "w_down": (L, h, d),
+        },
+        "final_norm": (d,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0,
+                device: str | torch.device | None = None) -> dict:
+    """A parameter dict drawn from a ``torch.Generator`` seeded with
+    ``seed``: weights ~ N(0, 1/fan_in), norms ones. (The draws differ from
+    ``jax.random``; carry the JAX package's weights over with
+    ``models.convert.params_from_numpy`` where they must match.)"""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(shape: tuple, name: str) -> torch.Tensor:
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=cfg.param_dtype, device=dev)
+        fan_in = shape[-2] if name != "embed" else shape[-1]
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return (w * (1.0 / math.sqrt(fan_in))).to(cfg.param_dtype)
+
+    shapes = param_shapes(cfg)
+    params = {name: leaf(shape, name) for name, shape in shapes.items()
+              if name != "layers"}
+    params["layers"] = {name: leaf(shape, name)
+                        for name, shape in shapes["layers"].items()}
+    return params
+
+
+# ------------------------------------------------------------------ forward
+def _attention(cfg: LlamaConfig, q, k, v):
+    _check_ported(cfg)
+    return dot_product_attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                                 block_q=cfg.attn_block_q,
+                                 block_k=cfg.attn_block_k)
+
+
+def _proj(cfg: LlamaConfig, layer: dict, name: str, h: torch.Tensor):
+    """Matmul against one layer weight in the compute dtype."""
+    if name + "_a" in layer:
+        raise NotImplementedError("LoRA adapters are not ported yet")
+    return h @ layer[name].to(cfg.dtype)
+
+
+def _block(cfg: LlamaConfig, x, layer, cos, sin, positions):
+    """One transformer block. x: [b, s, d] (cfg.dtype).
+    Returns (x, moe_aux_loss); aux is 0 for the dense FFN."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = _proj(cfg, layer, "wq", h).reshape(b, s, nh, hd)
+    kk = _proj(cfg, layer, "wk", h).reshape(b, s, nkv, hd)
+    vv = _proj(cfg, layer, "wv", h).reshape(b, s, nkv, hd)
+    q = apply_rope(q, cos, sin, positions)
+    kk = apply_rope(kk, cos, sin, positions)
+    attn = _attention(cfg, q, kk, vv).reshape(b, s, nh * hd)
+    x = x + _proj(cfg, layer, "wo", attn)
+
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(_proj(cfg, layer, "w_gate", h))
+    up = _proj(cfg, layer, "w_up", h)
+    x = x + _proj(cfg, layer, "w_down", gate * up)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def _saved_ops(cfg: LlamaConfig) -> frozenset:
+    """Ops whose outputs the remat policy keeps for the backward."""
+    if cfg.remat_policy == "dots":
+        ops = {torch.ops.aten.mm.default}
+    elif cfg.remat_policy == "nothing":
+        ops = set()
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    if cfg.remat_save_attn:
+        ops.add(torch.ops.ray_tpu_torch.flash_fwd.default)
+    return frozenset(ops)
+
+
+def _selective_policy(saved: frozenset, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(cfg: LlamaConfig):
+    """_block, wrapped in the activation checkpoint that cfg asks for."""
+    if not cfg.remat:
+        return _block
+    saved = _saved_ops(cfg)
+    if not saved:
+        return functools.partial(checkpoint, _block, use_reentrant=False)
+    context_fn = functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_selective_policy, saved))
+    return functools.partial(checkpoint, _block, use_reentrant=False,
+                             context_fn=context_fn)
+
+
+def backbone(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+             positions: torch.Tensor | None = None, with_aux: bool = False):
+    """tokens: [b, s] int -> final hidden states [b, s, d] (cfg.dtype), or
+    (hidden, moe_aux_loss) when with_aux."""
+    _check_ported(cfg)
+    if "lora" in params:
+        raise NotImplementedError("LoRA adapters are not ported yet")
+    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                cfg.rope_theta, device=x.device)
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    block = _remat_block(cfg)
+    aux_sum = x.new_zeros((), dtype=torch.float32)
+    for weights in per_layer:
+        x, aux = block(cfg, x, dict(zip(names, weights)), cos, sin,
+                       positions)
+        aux_sum = aux_sum + aux
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x, aux_sum) if with_aux else x
+
+
+def _head_matrix(params: dict, cfg: LlamaConfig) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head.to(cfg.dtype)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens: [b, s] int -> logits [b, s, vocab] (f32)."""
+    x = backbone(params, tokens, cfg, positions)
+    return (x @ _head_matrix(params, cfg)).float()
+
+
+def loss_fn(params: dict, batch: dict, cfg: LlamaConfig):
+    """batch: {"tokens": [b, s], "targets": [b, s]} -> (loss, aux).
+
+    Uses the fused LM head + cross entropy so the [b*s, vocab] f32 logits
+    tensor never exists at once.
+    """
+    x, moe_aux = backbone(params, batch["tokens"], cfg, with_aux=True)
+    ce_loss, n_tok = fused_lm_head_cross_entropy(
+        x, _head_matrix(params, cfg), batch["targets"])
+    loss = ce_loss + moe_aux
+    return loss, {"loss": ce_loss, "tokens": n_tok, "moe_aux": moe_aux}

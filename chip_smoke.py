@@ -9,9 +9,11 @@ caught, so any failure exits non-zero):
 1. device: the card's name and power limit as nvidia-smi reports them.
 2. build: compiles the kernels from ray_tpu_torch/csrc with nvcc.
 3. kernels: holds each CUDA kernel against its plain PyTorch version on the
-   card (f32 at tight tolerances, bf16 at the train step's shapes, d=128,
-   GQA, a ragged length) and times kernel, plain version and PyTorch's
-   scaled_dot_product_attention beside the kernel's bound.
+   card (f32 at tight tolerances; bf16 at the train step's shapes, d=128,
+   GQA, ragged lengths, strided views of a fused qkv buffer, sq != sk, and
+   d=32 on the mma.sync kernels) and times kernel, plain version and
+   PyTorch's scaled_dot_product_attention beside the kernel's bound, at d=64
+   and d=128.
 4. train_parity: 3 AdamW steps of the debug model in f32 with the flash
    kernels on the card against the same steps on the CPU (plain versions).
 5. train_410m: the Llama 410m train step at full width and depth (b8 s2048,
@@ -21,6 +23,13 @@ caught, so any failure exits non-zero):
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
 prints no result.
+
+    python3 chip_smoke.py --compare DIR
+
+times the kernels of the checkout in DIR (for example the parent commit,
+unpacked there with `git archive`) and of this one in turns, DIR, this,
+this, DIR, at the timed shapes, one process each, and prints one
+{"phase": "compare", ...} line per run.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -35,6 +45,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS_410M = 5   # timed steps, after 2 warm-up steps
+# (b, s, h, hk, d) at which the kernels are timed: the 410m train step's
+# attention, and the same width in heads of 128
+TIMED_SHAPES = ((8, 2048, 16, 16, 64), (8, 2048, 8, 8, 128))
 # (bf16 dense tensor-core FLOP/s, memory bytes/s) by part; NVIDIA data sheets
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
          "H100": (989e12, 3.35e12)}
@@ -43,10 +56,16 @@ REPLACES = {
     "flash_bwd_dq": "ray_tpu/ops/pallas/flash_attention.py:168",
     "flash_bwd_dkv": "ray_tpu/ops/pallas/flash_attention.py:219",
 }
+# the kernels that serve the main path (bf16, d=64)
 SOURCES = {
-    "flash_fwd": "ray_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_fwd": "ray_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
     "flash_bwd_dq": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
-    "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+}
+DESIGN = {
+    "flash_fwd": "wgmma+tma, warp-specialised",
+    "flash_bwd_dq": "mma.sync+cp.async",
+    "flash_bwd_dkv": "wgmma+tma, warp-specialised",
 }
 
 
@@ -61,8 +80,33 @@ def peaks(name: str) -> tuple[float, float]:
     return PEAKS["H100"]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of CUDA-event times of single calls, after warm-up."""
+def time_ms(fn, n: int = 20, runs: int = 5, warmup: int = 3) -> float:
+    """Device time of one call: one CUDA-event pair around n back-to-back
+    calls, divided by n; the median of `runs` such runs, after warm-up. The
+    host's own time per call (wrapper, ctypes, allocation) overlaps the
+    card's work instead of adding to it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def time_single_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of CUDA-event times of single calls, each synchronised: every
+    reading includes the host's time to launch. Kept beside time_ms to show
+    how much of a single-call reading is host time."""
     import torch
 
     for _ in range(warmup):
@@ -95,23 +139,57 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi}
 
 
-def phase_build() -> None:
+def ptxas_report(text: str) -> dict:
+    """Per kernel instance of a -Xptxas=-v log: registers and spill bytes,
+    keyed by kernel name and head dim (e.g. "flash_fwd_wgmma_kernel<64>")."""
+    report, name = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) "
+                          r"'?(_Z\w+)", line)
+        if entry:
+            sym = entry.group(1)
+            kernel = re.search(r"(flash_\w+?_kernel)I(?:\w*?)Li(\d+)E", sym)
+            name = (f"{kernel.group(1)}<{kernel.group(2)}>" if kernel
+                    else sym)
+            report.setdefault(name, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and name:
+            report[name]["spill_bytes"] = int(spill.group(1)) + int(
+                spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            report[name]["registers"] = int(used.group(1))
+    return report
+
+
+def phase_build() -> dict:
     from ray_tpu_torch.ops.cuda import _build
 
     path, seconds = _build.build()
     log = _build.BUILD_DIR / (path.name + ".log")
     text = log.read_text() if log.exists() else ""
-    spills = [ln.strip() for ln in text.splitlines() if "spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    regs = [int(ln.split("Used ")[1].split(" registers")[0])
-            for ln in text.splitlines() if "Used " in ln and "registers" in ln]
+    report = ptxas_report(text)
+    spills = {n: r["spill_bytes"] for n, r in report.items()
+              if r.get("spill_bytes")}
+    regs = [r["registers"] for r in report.values() if "registers" in r]
+    lib = _build.library()
+    for d in (64, 128):  # dynamic shared memory a block of each takes
+        report[f"flash_fwd_wgmma_kernel<{d}>"]["smem_bytes"] = (
+            lib.rtt_flash_fwd_sm90_smem(d))
+        report[f"flash_bwd_dkv_wgmma_kernel<{d}>"]["smem_bytes"] = (
+            lib.rtt_flash_bwd_dkv_sm90_smem(d))
     emit("build", seconds=seconds, library=str(path.relative_to(ROOT)),
          ptxas_log=str(log.relative_to(ROOT)),
-         max_registers=max(regs) if regs else None,
-         spill_lines=spills[:8])
+         max_registers=max(regs) if regs else None, spills=spills,
+         wgmma_kernels={n: r for n, r in report.items() if "wgmma" in n})
+    return report
 
 
-def _inputs(b, s, h, hk, d, dtype, seed):
+def _inputs(b, sq, sk, h, hk, d, dtype, seed, fused=False):
+    """q, k, v, do from a seed. fused: q, k and v are views of one
+    [b, s, h + 2 hk, d] buffer (head stride d, row stride (h + 2 hk) d), as a
+    fused qkv projection would leave them."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -119,7 +197,13 @@ def _inputs(b, s, h, hk, d, dtype, seed):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    return rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), rnd(b, s, h, d)
+    if fused:
+        assert sq == sk
+        buf = rnd(b, sq, h + 2 * hk, d)
+        q, k, v = buf[:, :, :h], buf[:, :, h:h + hk], buf[:, :, h + hk:]
+    else:
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d)
+    return q, k, v, rnd(b, sq, h, d)
 
 
 def _run_kernels(fa, q, k, v, do, causal):
@@ -158,15 +242,17 @@ def _allclose_err(a, b, tol) -> float:
     return ((a - b).abs() / (tol + tol * b.abs())).max().item()
 
 
-def check_case(fa, tag, b, s, h, hk, d, dtype, causal, seed=0) -> dict:
+def check_case(fa, tag, b, s, h, hk, d, dtype, causal, seed=0, sk=None,
+               fused=False) -> dict:
     import torch
 
-    q, k, v, do = _inputs(b, s, h, hk, d, dtype, seed)
+    sk = s if sk is None else sk
+    q, k, v, do = _inputs(b, s, sk, h, hk, d, dtype, seed, fused)
     out, lse, delta, dq, dk, dv = _run_kernels(fa, q, k, v, do, causal)
     p_out, p_lse, p_dq, p_dk, p_dv = _run_plain(fa, q, k, v, do, lse, delta,
                                                 causal)
-    res = {"case": tag, "shape": [b, s, h, hk, d], "dtype": str(dtype),
-           "causal": causal,
+    res = {"case": tag, "shape": [b, s, h, hk, d], "sk": sk, "fused": fused,
+           "dtype": str(dtype), "causal": causal,
            "out_max_abs": _max_abs(out, p_out),
            "lse_max_abs": _max_abs(lse, p_lse),
            "dq_max_abs": _max_abs(dq, p_dq),
@@ -217,9 +303,65 @@ def _bound(name, b, s, h, hk, d, elem, causal, peak_flops, peak_bytes):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_kernels(device_name: str) -> dict:
+def _time_kernels(fa, b, s, h, hk, d, peak_flops, peak_bytes,
+                  plain=True) -> dict:
+    """Kernel, plain-version and SDPA times at one causal bf16 shape."""
     import torch
     import torch.nn.functional as F
+
+    q, k, v, do = _inputs(b, s, s, h, hk, d, torch.bfloat16, 1)
+    out, lse = fa.flash_forward_cuda(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    calls = {
+        "flash_fwd": lambda: fa.flash_forward_cuda(q, k, v, True),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                     True),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                       delta, True),
+    }
+    plains = {
+        "flash_fwd": lambda: fa.flash_forward_plain(q, k, v, True),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                      True),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                        delta, True),
+    }
+    ms = {name: time_ms(fn) for name, fn in calls.items()}
+    single_ms = {name: time_single_ms(fn) for name, fn in calls.items()}
+    plain_ms = ({name: time_ms(fn, n=2, runs=3, warmup=1)
+                 for name, fn in plains.items()} if plain else {})
+    # PyTorch's fused attention as the yardstick (timed here only)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=hk != h))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=hk != h)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+    library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+                  "flash_bwd_dkv": sdpa_bwd}
+    table = {}
+    for name in calls:
+        bound = _bound(name, b, s, h, hk, d, 2, True, peak_flops, peak_bytes)
+        table[name] = {"ms": ms[name], "single_call_ms": single_ms[name],
+                       "plain_ms": plain_ms.get(name),
+                       "library_ms": library_ms[name], **bound,
+                       "roofline_share": bound["bound_ms"] / ms[name]}
+    return table
+
+
+def _emit_times(table: dict, shape: list) -> None:
+    for name, row in table.items():
+        emit("kernels", kernel=name, shape=shape, dtype="bf16",
+             design=DESIGN[name], **row,
+             library=("sdpa_fwd" if name == "flash_fwd"
+                      else "sdpa_bwd (dq, dk, dv in one call)"))
+
+
+def phase_kernels(device_name: str) -> dict:
+    import torch
 
     from ray_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -233,57 +375,70 @@ def phase_kernels(device_name: str) -> dict:
     main = check_case(fa, "bf16_main_410m", 8, 2048, 16, 16, 64, bf16, True)
     check_case(fa, "bf16_d128", 8, 2048, 8, 8, 128, bf16, True)
     check_case(fa, "bf16_gqa", 8, 2048, 16, 4, 64, bf16, True)
+    check_case(fa, "bf16_gqa_d128", 2, 2048, 16, 4, 128, bf16, True)
     check_case(fa, "bf16_ragged_s1000", 2, 1000, 4, 2, 64, bf16, True)
+    check_case(fa, "bf16_ragged_s1000_d128", 2, 1000, 4, 2, 128, bf16, True)
     check_case(fa, "bf16_noncausal", 2, 1024, 4, 4, 64, bf16, False)
+    check_case(fa, "bf16_fused_qkv_views", 2, 1024, 8, 2, 64, bf16, True,
+               fused=True)
+    check_case(fa, "bf16_fused_qkv_views_d128", 2, 1000, 4, 4, 128, bf16,
+               False, fused=True)
+    check_case(fa, "bf16_sq1024_sk2048", 2, 1024, 8, 4, 64, bf16, True,
+               sk=2048)
+    check_case(fa, "bf16_d32_mma_sync", 2, 1024, 4, 2, 32, bf16, True)
 
-    # timing at the train step's shape
-    b, s, h, hk, d = 8, 2048, 16, 16, 64
-    q, k, v, do = _inputs(b, s, h, hk, d, bf16, 1)
-    out, lse = fa.flash_forward_cuda(q, k, v, True)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    ms = {
-        "flash_fwd": time_ms(lambda: fa.flash_forward_cuda(q, k, v, True)),
-        "flash_bwd_dq": time_ms(
-            lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)),
-        "flash_bwd_dkv": time_ms(
-            lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)),
-    }
-    plain_ms = {
-        "flash_fwd": time_ms(lambda: fa.flash_forward_plain(q, k, v, True),
-                             iters=10, warmup=1),
-        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_plain(
-            q, k, v, do, lse, delta, True), iters=10, warmup=1),
-        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_plain(
-            q, k, v, do, lse, delta, True), iters=10, warmup=1),
-    }
-    # PyTorch's fused attention as the yardstick (timed here only)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2)
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-        o_sdpa, (qt, kt, vt), dot, retain_graph=True))
-    library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
-                  "flash_bwd_dkv": sdpa_bwd}
     peak_flops, peak_bytes = peaks(device_name)
+    table = _time_kernels(fa, *TIMED_SHAPES[0], peak_flops, peak_bytes)
+    _emit_times(table, list(TIMED_SHAPES[0]))
+    d128 = _time_kernels(fa, *TIMED_SHAPES[1], peak_flops, peak_bytes,
+                         plain=False)
+    _emit_times(d128, list(TIMED_SHAPES[1]))
     err = {"flash_fwd": main["out_max_abs"], "flash_bwd_dq": main["dq_max_abs"],
            "flash_bwd_dkv": main["dkv_max_abs"]}
-    table = {}
-    for name in fa.launches:
-        bound = _bound(name, b, s, h, hk, d, 2, True, peak_flops, peak_bytes)
-        table[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
-                       "library_ms": library_ms[name], "max_abs_err": err[name],
-                       **bound}
-        emit("kernels", kernel=name, shape=[b, s, h, hk, d], dtype="bf16",
-             **table[name],
-             library=("sdpa_fwd" if name == "flash_fwd"
-                      else "sdpa_bwd (dq, dk, dv in one call)"),
-             roofline_share=bound["bound_ms"] / ms[name])
+    for name in table:
+        table[name]["max_abs_err"] = err[name]
     emit("kernels", verdict="ok", kernels=list(table),
-         fwd_plus_bwd_ms=sum(ms.values()), sdpa_fwd_plus_bwd_ms=sdpa_fwd + sdpa_bwd)
+         fwd_plus_bwd_ms=sum(r["ms"] for r in table.values()),
+         sdpa_fwd_plus_bwd_ms=(table["flash_fwd"]["library_ms"]
+                               + table["flash_bwd_dq"]["library_ms"]),
+         d128_ms={n: r["ms"] for n, r in d128.items()})
     return table
+
+
+def time_tree(tree: str) -> None:
+    """--time-tree TREE: times the kernels of the ray_tpu_torch package in
+    TREE (a checkout of this or another commit) at TIMED_SHAPES."""
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+    if not os.path.abspath(fa.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {fa.__file__}, not the package in {tree}")
+    peak_flops, peak_bytes = peaks(torch.cuda.get_device_name(0))
+    res = {}
+    for shape in TIMED_SHAPES:
+        t = _time_kernels(fa, *shape, peak_flops, peak_bytes, plain=False)
+        res[f"d{shape[4]}"] = {**{n: r["ms"] for n, r in t.items()},
+                               "sdpa_fwd": t["flash_fwd"]["library_ms"],
+                               "sdpa_bwd": t["flash_bwd_dq"]["library_ms"]}
+    emit("compare", tree=tree, ms=res)
+
+
+def compare(other: str) -> None:
+    """--compare DIR: times the kernels of DIR (e.g. the parent commit,
+    unpacked with git archive) and of this checkout in turns, DIR, this,
+    this, DIR, each run in a process of its own on the same card."""
+    for tree in (other, ROOT, ROOT, other):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-tree", tree],
+            capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in out.stdout.splitlines() if '"compare"' in ln]
+        if out.returncode != 0 or not lines:
+            raise RuntimeError(f"timing {tree} failed:\n{out.stdout[-2000:]}"
+                               f"\n{out.stderr[-4000:]}")
+        print(lines[-1], flush=True)
 
 
 def _train(cfg, params_np, batch_np, device, steps):
@@ -437,16 +592,26 @@ def profile_step(step, state, batch) -> None:
               for name, ms, n in rows[:12]])
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if argv[:1] == ["--time-tree"] and len(argv) == 2:
+        time_tree(argv[1])
+        return 0
     sys.path.insert(0, ROOT)
     import ray_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        phase_device()
+        compare(argv[1])
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     info = phase_device()
     phase_build()
     table = phase_kernels(info["name"])
@@ -454,7 +619,8 @@ def main() -> int:
     counts = phase_train_410m(info["name"], STEPS_410M)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": counts[name],
+         "replaces": REPLACES[name], "design": DESIGN[name],
+         "launches": counts[name],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
@@ -466,4 +632,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

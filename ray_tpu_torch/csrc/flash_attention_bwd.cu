@@ -27,7 +27,13 @@
 // pass through two shared-memory stages with cp.async, so the next tile's
 // copy overlaps the current tile's products. f32 kernels: the same loops with
 // plain FMA on shared-memory strips, to hold the algorithm at f32 tolerances.
+//
+// Which kernel serves which call: dK/dV in bf16 at d in {64, 128} goes to the
+// warp-specialised wgmma kernel of flash_attention_bwd_sm90.cu; dQ in bf16,
+// and dK/dV in bf16 at d in {16, 32}, to the mma.sync kernels below; f32 to
+// the FMA kernels below.
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace rtt {
 
@@ -334,13 +340,6 @@ __global__ void __launch_bounds__(kThreads)
   store_strip<D8>(dq + bi * dqs.b + hi * dqs.h, dqs.s, q0 + warp * 16, dm.sq, acc, 1.0f, 1.0f);
 }
 
-// Query-tile height of the dK/dV kernel: smaller at d = 128, where the dK and
-// dV accumulators take 128 registers a thread.
-template <int D>
-__host__ __device__ constexpr int dkv_tile() {
-  return D > 64 ? 32 : 64;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -349,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
                              bf16* __restrict__ dk, bf16* __restrict__ dv, Strides qs,
                              Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
                              Dims dm) {
-  constexpr int BN = dkv_tile<D>();
+  constexpr int BN = 64;  // query-tile height
   constexpr int LD = D + pad<bf16>();
   constexpr int N8 = BN / 8;
   constexpr int D8 = D / 8;
@@ -478,8 +477,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* delta, void* dk, void* dv,
                        const Strides* st, Dims dm, cudaStream_t stream) {
   dim3 grid((dm.sk + kBlockM - 1) / kBlockM, dm.b * dm.hk);
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int BN = dkv_tile<D>();
+  if constexpr (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
+    return sm90::launch_dkv(D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+                            delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), st, dm,
+                            stream);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int BN = 64;
     constexpr int bytes = (2 * kBlockM + 4 * BN) * (D + pad<bf16>()) * 2 + 4 * BN * 4;
     auto kernel = flash_bwd_dkv_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, bytes);

@@ -27,9 +27,11 @@
 // K and V tiles stream through two shared-memory stages with cp.async: the
 // next tile's copy is in flight while the warps compute on the current one.
 //
-// Later work: wgmma fed by TMA, with a producer warp and a deeper ring of
-// stages (warp specialisation).
+// Which kernel serves which call: bf16 at d in {64, 128} goes to the
+// warp-specialised wgmma kernel of flash_attention_fwd_sm90.cu; bf16 at d in
+// {16, 32} to the mma.sync kernel below; f32 to the FMA kernel below.
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace rtt {
 
@@ -298,7 +300,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
                        Strides qs, Strides ks, Strides vs, Strides os, Dims dm,
                        cudaStream_t stream) {
   dim3 grid((dm.sq + kBlockM - 1) / kBlockM, dm.b * dm.h);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
+    return sm90::launch_fwd(D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs,
+                            os, dm, stream);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     constexpr int bytes = (kBlockM + 4 * 64) * (D + pad<bf16>()) * 2;
     auto kernel = flash_fwd_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, bytes);

@@ -4,11 +4,17 @@ and their plain PyTorch versions.
 Counterpart of ``ray_tpu/ops/pallas/flash_attention.py``. Three kernels, in
 ``ray_tpu_torch/csrc/``:
 
-* ``flash_fwd`` (``flash_attention_fwd.cu``): blockwise online-softmax
-  forward, returns ``out`` and ``lse``;
-* ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``flash_attention_bwd.cu``): the
-  two-kernel flash backward from the saved ``lse`` and
-  ``delta = rowsum(dO * O)`` (computed here in f32 by torch).
+* ``flash_fwd``: blockwise online-softmax forward, returns ``out`` and
+  ``lse``;
+* ``flash_bwd_dq`` and ``flash_bwd_dkv``: the two-kernel flash backward from
+  the saved ``lse`` and ``delta = rowsum(dO * O)`` (computed here in f32 by
+  torch).
+
+The C entry points pick the kernel by (dtype, head dim): bf16 at d in
+{64, 128} runs the warp-specialised wgmma + TMA kernels for the forward and
+dK/dV (``flash_attention_fwd_sm90.cu``, ``flash_attention_bwd_sm90.cu``);
+bf16 dQ, and bf16 at d in {16, 32}, the mma.sync kernels; f32 the FMA
+kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``).
 
 Beside each kernel sits its plain version (``*_plain``), the same math
 written blockwise in torch over ``block_q`` x ``block_k`` tiles. The autograd
@@ -253,6 +259,9 @@ def flash_forward_cuda(q, k, v, causal=True, scale=None):
     _check_bshd("flash_fwd", q, q=q, k=k, v=v)
     _check_gqa("flash_fwd", q, k, v)
     b, sq, h, d = q.shape
+    if q.dtype == torch.bfloat16 and d in (64, 128) and not _default_scale(d, scale) > 0:
+        # the wgmma kernel's softmax takes the row max of the raw scores
+        raise ValueError(f"flash_fwd: scale must be positive, got {scale}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = library()

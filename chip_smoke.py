@@ -10,10 +10,11 @@ caught, so any failure exits non-zero):
 2. build: compiles the kernels from ray_tpu_torch/csrc with nvcc.
 3. kernels: holds each CUDA kernel against its plain PyTorch version on the
    card (f32 at tight tolerances; bf16 at the train step's shapes, d=128,
-   GQA, ragged lengths, strided views of a fused qkv buffer, sq != sk, and
-   d=32 on the mma.sync kernels) and times kernel, plain version and
-   PyTorch's scaled_dot_product_attention beside the kernel's bound, at d=64
-   and d=128.
+   GQA, ragged lengths, strided views of a fused qkv buffer, sq != sk, the
+   edges of the dQ kernel's 128-row block, and d=32 on the mma.sync
+   kernels) and times kernel, plain version and PyTorch's
+   scaled_dot_product_attention beside the kernel's bound, at d=64 and
+   d=128.
 4. train_parity: 3 AdamW steps of the debug model in f32 with the flash
    kernels on the card against the same steps on the CPU (plain versions).
 5. train_410m: the Llama 410m train step at full width and depth (b8 s2048,
@@ -28,8 +29,9 @@ prints no result.
 
 times the kernels of the checkout in DIR (for example the parent commit,
 unpacked there with `git archive`) and of this one in turns, DIR, this,
-this, DIR, at the timed shapes, one process each, and prints one
-{"phase": "compare", ...} line per run.
+this, DIR, at the timed shapes, then the 410m train step with its profile
+(step ms, device busy ms, idle share, flash attention's device ms), one
+process each, and prints one {"phase": "compare", ...} line per run.
 """
 
 from __future__ import annotations
@@ -59,12 +61,12 @@ REPLACES = {
 # the kernels that serve the main path (bf16, d=64)
 SOURCES = {
     "flash_fwd": "ray_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
-    "flash_bwd_dq": "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dq": "ray_tpu_torch/csrc/flash_attention_bwd_dq_sm90.cu",
     "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
 }
 DESIGN = {
     "flash_fwd": "wgmma+tma, warp-specialised",
-    "flash_bwd_dq": "mma.sync+cp.async",
+    "flash_bwd_dq": "wgmma+tma, warp-specialised",
     "flash_bwd_dkv": "wgmma+tma, warp-specialised",
 }
 
@@ -177,6 +179,8 @@ def phase_build() -> dict:
     for d in (64, 128):  # dynamic shared memory a block of each takes
         report[f"flash_fwd_wgmma_kernel<{d}>"]["smem_bytes"] = (
             lib.rtt_flash_fwd_sm90_smem(d))
+        report[f"flash_bwd_dq_wgmma_kernel<{d}>"]["smem_bytes"] = (
+            lib.rtt_flash_bwd_dq_sm90_smem(d))
         report[f"flash_bwd_dkv_wgmma_kernel<{d}>"]["smem_bytes"] = (
             lib.rtt_flash_bwd_dkv_sm90_smem(d))
     emit("build", seconds=seconds, library=str(path.relative_to(ROOT)),
@@ -386,6 +390,14 @@ def phase_kernels(device_name: str) -> dict:
     check_case(fa, "bf16_sq1024_sk2048", 2, 1024, 8, 4, 64, bf16, True,
                sk=2048)
     check_case(fa, "bf16_d32_mma_sync", 2, 1024, 4, 2, 32, bf16, True)
+    # the dQ kernel's 128-row block and its two warpgroups: sq a multiple of
+    # 64 but not of 128 (the last block's second warpgroup has no valid row);
+    # sq > sk top-left (rows past sk see every key, K's last tile is ragged);
+    # one key tile and one block
+    check_case(fa, "bf16_s960", 2, 960, 4, 2, 64, bf16, True)
+    check_case(fa, "bf16_sq2048_sk1000_d128", 2, 2048, 8, 4, 128, bf16, True,
+               sk=1000)
+    check_case(fa, "bf16_s64_d128", 1, 64, 2, 2, 128, bf16, True)
 
     peak_flops, peak_bytes = peaks(device_name)
     table = _time_kernels(fa, *TIMED_SHAPES[0], peak_flops, peak_bytes)
@@ -407,7 +419,8 @@ def phase_kernels(device_name: str) -> dict:
 
 def time_tree(tree: str) -> None:
     """--time-tree TREE: times the kernels of the ray_tpu_torch package in
-    TREE (a checkout of this or another commit) at TIMED_SHAPES."""
+    TREE (a checkout of this or another commit) at TIMED_SHAPES, then its
+    410m train step."""
     import torch
 
     tree = os.path.abspath(tree)
@@ -423,7 +436,11 @@ def time_tree(tree: str) -> None:
         res[f"d{shape[4]}"] = {**{n: r["ms"] for n, r in t.items()},
                                "sdpa_fwd": t["flash_fwd"]["library_ms"],
                                "sdpa_bwd": t["flash_bwd_dq"]["library_ms"]}
-    emit("compare", tree=tree, ms=res)
+    step = phase_train_410m(torch.cuda.get_device_name(0), STEPS_410M)
+    emit("compare", tree=tree, ms=res, step_410m={
+        "step_ms": step["step_ms"], "device_busy_ms": step["device_busy_ms"],
+        "device_idle_share": step["device_idle_share"],
+        "flash_ms": step["groups_ms"]["flash attention (ours)"]})
 
 
 def compare(other: str) -> None:
@@ -541,8 +558,8 @@ def phase_train_410m(device_name: str, steps: int) -> dict:
         raise AssertionError(f"410m losses not finite and falling: {losses}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    profile_step(step, state, batch)
-    return counts
+    return {"launches": counts, "step_ms": step_ms,
+            **profile_step(step, state, batch)}
 
 
 def _kernel_group(name: str) -> str:
@@ -556,7 +573,7 @@ def _kernel_group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def profile_step(step, state, batch) -> None:
+def profile_step(step, state, batch) -> dict:
     """Device time by kernel over one traced 410m step: where the time goes
     and how long the card sits idle."""
     import torch
@@ -585,11 +602,13 @@ def profile_step(step, state, batch) -> None:
     groups: dict[str, float] = {}
     for name, ms, _ in rows:
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
-    emit("profile_410m", traced_step_wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-         groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+    res = {"traced_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    emit("profile_410m", **res,
          top=[{"kernel": name[:90], "ms": ms, "calls": n}
               for name, ms, n in rows[:12]])
+    return res
 
 
 def main(argv: list[str]) -> int:
@@ -616,7 +635,7 @@ def main(argv: list[str]) -> int:
     phase_build()
     table = phase_kernels(info["name"])
     phase_train_parity()
-    counts = phase_train_410m(info["name"], STEPS_410M)
+    counts = phase_train_410m(info["name"], STEPS_410M)["launches"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

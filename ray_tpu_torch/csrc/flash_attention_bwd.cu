@@ -28,10 +28,10 @@
 // copy overlaps the current tile's products. f32 kernels: the same loops with
 // plain FMA on shared-memory strips, to hold the algorithm at f32 tolerances.
 //
-// Which kernel serves which call: dK/dV in bf16 at d in {64, 128} goes to the
-// warp-specialised wgmma kernel of flash_attention_bwd_sm90.cu; dQ in bf16,
-// and dK/dV in bf16 at d in {16, 32}, to the mma.sync kernels below; f32 to
-// the FMA kernels below.
+// Which kernel serves which call: bf16 at d in {64, 128} goes to the
+// warp-specialised wgmma kernels, dQ to flash_attention_bwd_dq_sm90.cu and
+// dK/dV to flash_attention_bwd_sm90.cu; bf16 at d in {16, 32} to the
+// mma.sync kernels below; f32 to the FMA kernels below.
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
@@ -450,7 +450,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, void* dq, const Strides* st,
                       Dims dm, cudaStream_t stream) {
   dim3 grid((dm.sq + kBlockM - 1) / kBlockM, dm.b * dm.h);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && (D == 64 || D == 128)) {
+    return sm90::launch_dq(D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+                           delta, static_cast<bf16*>(dq), st, dm, stream);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     constexpr int bytes = (2 * kBlockM + 4 * 64) * (D + pad<bf16>()) * 2;
     auto kernel = flash_bwd_dq_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, bytes);

@@ -1,5 +1,6 @@
 // Hopper pieces of the warp-specialised flash kernels (flash_attention_fwd_sm90.cu,
-// flash_attention_bwd_sm90.cu): TMA tile loads through 4-D tensor maps,
+// flash_attention_bwd_dq_sm90.cu, flash_attention_bwd_sm90.cu): TMA tile
+// loads through 4-D tensor maps,
 // mbarrier pipelines, warpgroup tensor-core products (wgmma) with operands
 // in 128-byte-swizzled shared memory, and register reallocation between the
 // producer and consumer warpgroups.
@@ -294,6 +295,9 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int s, int h, in
 cudaError_t launch_fwd(int d, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                        const Strides& qs, const Strides& ks, const Strides& vs,
                        const Strides& os, const Dims& dm, cudaStream_t stream);
+cudaError_t launch_dq(int d, const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                      const float* lse, const float* delta, bf16* dq, const Strides* st,
+                      const Dims& dm, cudaStream_t stream);
 cudaError_t launch_dkv(int d, const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                        const float* lse, const float* delta, bf16* dk, bf16* dv,
                        const Strides* st, const Dims& dm, cudaStream_t stream);

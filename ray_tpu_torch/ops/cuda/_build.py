@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ray_tpu_torch"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "flash_attention_fwd_sm90.cu", "flash_attention_bwd_sm90.cu")
+           "flash_attention_fwd_sm90.cu", "flash_attention_bwd_dq_sm90.cu",
+           "flash_attention_bwd_sm90.cu")
 HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -108,7 +109,8 @@ def library() -> ctypes.CDLL:
                                       _PTR]
     for fn in (lib.rtt_flash_fwd, lib.rtt_flash_bwd_dq, lib.rtt_flash_bwd_dkv):
         fn.restype = ctypes.c_int
-    for fn in (lib.rtt_flash_fwd_sm90_smem, lib.rtt_flash_bwd_dkv_sm90_smem):
+    for fn in (lib.rtt_flash_fwd_sm90_smem, lib.rtt_flash_bwd_dq_sm90_smem,
+               lib.rtt_flash_bwd_dkv_sm90_smem):
         fn.argtypes = [_INT]
         fn.restype = ctypes.c_int
     lib.rtt_error_string.argtypes = [_INT]

@@ -11,10 +11,11 @@ Counterpart of ``ray_tpu/ops/pallas/flash_attention.py``. Three kernels, in
   torch).
 
 The C entry points pick the kernel by (dtype, head dim): bf16 at d in
-{64, 128} runs the warp-specialised wgmma + TMA kernels for the forward and
-dK/dV (``flash_attention_fwd_sm90.cu``, ``flash_attention_bwd_sm90.cu``);
-bf16 dQ, and bf16 at d in {16, 32}, the mma.sync kernels; f32 the FMA
-kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``).
+{64, 128} runs the warp-specialised wgmma + TMA kernels
+(``flash_attention_fwd_sm90.cu``, ``flash_attention_bwd_dq_sm90.cu``,
+``flash_attention_bwd_sm90.cu``); bf16 at d in {16, 32} the mma.sync
+kernels; f32 the FMA kernels (``flash_attention_fwd.cu``,
+``flash_attention_bwd.cu``).
 
 Beside each kernel sits its plain version (``*_plain``), the same math
 written blockwise in torch over ``block_q`` x ``block_k`` tiles. The autograd
@@ -240,6 +241,15 @@ def _check_rows(name: str, q: torch.Tensor, **rows) -> None:
                              f"[{b}, {h}, {sq}] tensor on {q.device}")
 
 
+def _check_scale(name: str, q: torch.Tensor, scale: float) -> None:
+    """The bf16 wgmma forward takes the row max of the raw scores, and the
+    bf16 wgmma dQ kernel folds log2(scale) into its exponent: both need a
+    positive scale."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+            and not scale > 0):
+        raise ValueError(f"{name}: scale must be positive, got {scale}")
+
+
 def _strides(*tensors: torch.Tensor):
     flat = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_int64 * len(flat))(*flat)
@@ -259,9 +269,7 @@ def flash_forward_cuda(q, k, v, causal=True, scale=None):
     _check_bshd("flash_fwd", q, q=q, k=k, v=v)
     _check_gqa("flash_fwd", q, k, v)
     b, sq, h, d = q.shape
-    if q.dtype == torch.bfloat16 and d in (64, 128) and not _default_scale(d, scale) > 0:
-        # the wgmma kernel's softmax takes the row max of the raw scores
-        raise ValueError(f"flash_fwd: scale must be positive, got {scale}")
+    _check_scale("flash_fwd", q, _default_scale(d, scale))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = library()
@@ -284,6 +292,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
     if do.shape != q.shape:
         raise ValueError("flash_bwd_dq: do must have q's shape")
     d = q.shape[-1]
+    _check_scale("flash_bwd_dq", q, _default_scale(d, scale))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = library()
     with torch.cuda.device(q.device):

@@ -43,22 +43,25 @@ def _weight_position(out, lib):
 LOSSES = {"cos": _weight_cos, "square": _weight_square,
           "position": _weight_position}
 
-# name: (h, hk, causal, block_q, block_k, seed, loss)
+# name: (h, hk, d, causal, block_q, block_k, seed, loss); d=128 is the
+# second width of the bf16 wgmma kernels, whose plain versions these hold
 CASES = {
-    "causal": (2, 2, True, 128, 128, 2, "cos"),
-    "noncausal": (2, 2, False, 128, 128, 2, "cos"),
-    "gqa": (4, 2, True, 128, 128, 3, "square"),
-    "rect_64x128": (2, 2, True, 64, 128, 5, "position"),
-    "rect_128x64": (2, 2, True, 128, 64, 5, "position"),
-    "rect_32x256": (2, 2, True, 32, 256, 5, "position"),
+    "causal": (2, 2, 64, True, 128, 128, 2, "cos"),
+    "noncausal": (2, 2, 64, False, 128, 128, 2, "cos"),
+    "gqa": (4, 2, 64, True, 128, 128, 3, "square"),
+    "rect_64x128": (2, 2, 64, True, 64, 128, 5, "position"),
+    "rect_128x64": (2, 2, 64, True, 128, 64, 5, "position"),
+    "rect_32x256": (2, 2, 64, True, 32, 256, 5, "position"),
+    "gqa_d128": (4, 2, 128, True, 128, 128, 3, "square"),
+    "noncausal_d128": (2, 2, 128, False, 128, 128, 2, "cos"),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _reference(case):
     """(q, k, v, out, dq, dk, dv) from the Pallas kernels, computed once."""
-    h, hk, causal, bq, bk, seed, loss = CASES[case]
-    q, k, v = _qkv(1, 256, 256, h, hk, 64, seed)
+    h, hk, d, causal, bq, bk, seed, loss = CASES[case]
+    q, k, v = _qkv(1, 256, 256, h, hk, d, seed)
 
     def f(q, k, v):
         out = jflash.flash_attention(q, k, v, causal, None, bq, bk)
@@ -71,7 +74,7 @@ def _reference(case):
 
 
 def _port(case):
-    h, hk, causal, bq, bk, _, loss = CASES[case]
+    _, _, _, causal, bq, bk, _, loss = CASES[case]
     q, k, v = (torch.tensor(a, requires_grad=True)
                for a in _reference(case)[:3])
     out = tflash.flash_attention(q, k, v, causal, None, bq, bk)
@@ -148,3 +151,18 @@ def test_cpu_tensors_do_not_count_launches():
     q, k, v = (torch.tensor(a) for a in _qkv(1, 64, 64, 2, 2, 16, 0))
     tflash.flash_attention(q, k, v)
     assert tflash.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_kernels_need_a_positive_scale(d):
+    """The bf16 wgmma forward and dQ kernels (d 64 and 128) need scale > 0:
+    the wrappers refuse any other before a launch. The mma.sync and f32
+    kernels take any scale."""
+    bf16 = torch.zeros((1, 1, 1, d), dtype=torch.bfloat16)
+    for scale in (0.0, -d ** -0.5, float("nan")):
+        with pytest.raises(ValueError, match="scale must be positive"):
+            tflash._check_scale("flash_bwd_dq", bf16, scale)
+    tflash._check_scale("flash_bwd_dq", bf16, d ** -0.5)
+    tflash._check_scale("flash_bwd_dq", bf16.float(), -1.0)
+    tflash._check_scale("flash_bwd_dq", torch.zeros((1, 1, 1, 32),
+                                                    dtype=torch.bfloat16), -1.0)

@@ -20,6 +20,23 @@ caught, so any failure exits non-zero):
 5. train_410m: the Llama 410m train step at full width and depth (b8 s2048,
    bf16 compute, remat "dots", flash attention); the launch counters show
    every step went through all three kernels.
+6. serve_parity: the debug model in f32 with TF32 off: decode_step logits
+   and cache card vs CPU (left-padded batch, per-row depths, chunked
+   prefill) to 1e-4, and the engine's greedy streams card vs CPU, token for
+   token (one request, three concurrent, a chunked long prompt, a prefix
+   hit, a prefill_only -> generate_prefilled handoff, a free slot left free
+   for more steps than its cache holds and then reused). The scenarios
+   (serve_scenarios) are shared with tests/test_torch_serve_llm.py.
+7. serve_410m: the 410m preset at full width and depth. decode_step
+   (1024-token prefill, 8 teacher-forced steps) against the flash forward
+   in f32 with TF32 off, to relative L2 1e-4, with an off-by-one control
+   that must read above it (the bf16 reading, as served, is printed; 24
+   flash_fwd launches each). Then LLMEngine (8 slots, buckets
+   128/512/1024, chunk 256, bf16): a late-join check (7 concurrent
+   requests, then a late one that must finish within 6 decode steps), and
+   a load window of SERVE_REQUESTS open-loop requests at SERVE_RATE
+   (serve_traffic): TTFT, TPOT, inter-token latency, tokens/s, peak
+   memory; then the decode step alone, timed and traced.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -32,10 +49,17 @@ unpacked there with `git archive`) and of this one in turns, DIR, this,
 this, DIR, at the timed shapes, then the 410m train step with its profile
 (step ms, device busy ms, idle share, flash attention's device ms), one
 process each, and prints one {"phase": "compare", ...} line per run.
+
+    python3 chip_smoke.py --serve-sweep 1,1.5,2,3 60
+
+runs the 410m engine's load window at each rate (requests/s) with that
+many requests, to find the rate it sustains; the serve_410m line holds the
+last rate's window and the others under "sweep".
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -576,6 +600,12 @@ def _kernel_group(name: str) -> str:
 def profile_step(step, state, batch) -> dict:
     """Device time by kernel over one traced 410m step: where the time goes
     and how long the card sits idle."""
+    return profile_call(lambda: step(state, batch), "profile_410m")
+
+
+def profile_call(fn, phase: str) -> dict:
+    """Device time by kernel group over one traced call of fn, and the
+    card's idle share of the call's wall time; emitted as `phase`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -583,7 +613,7 @@ def profile_step(step, state, batch) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
@@ -605,9 +635,593 @@ def profile_step(step, state, batch) -> dict:
     res = {"traced_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
-    emit("profile_410m", **res,
+    emit(phase, **res, launches_traced=sum(n for _, _, n in rows),
          top=[{"kernel": name[:90], "ms": ms, "calls": n}
               for name, ms, n in rows[:12]])
+    return res
+
+
+# ----------------------------------------------------------------- serving
+@contextlib.contextmanager
+def f32_presets(llama):
+    """llama.config_for returning dtype=float32 unless told otherwise: the
+    debug preset in f32, wrapped the way the CPU tests wrap it."""
+    import torch
+
+    config_for = llama.config_for
+    llama.config_for = lambda name, **kw: config_for(
+        name, **{"dtype": torch.float32, **kw})
+    try:
+        yield
+    finally:
+        llama.config_for = config_for
+
+
+async def _agen_list(agen) -> list:
+    return [t async for t in agen]
+
+
+def _decode_case(llama, params_np, cfg, cache_np, token_calls, device):
+    """decode_step over `token_calls` from one starting cache on `device`:
+    (logits of each call, final cache), on the CPU."""
+    import torch
+
+    from ray_tpu_torch.models.convert import params_from_numpy
+
+    params = params_from_numpy(params_np, device=device, cfg=cfg)
+    cache = {k: torch.from_numpy(v.copy()).to(device)
+             for k, v in cache_np.items()}
+    logits = []
+    with torch.inference_mode():
+        for tokens in token_calls:
+            out, cache = llama.decode_step(
+                params, cache, torch.from_numpy(tokens).to(device), cfg)
+            logits.append(out.cpu())
+    return logits, {k: v.cpu() for k, v in cache.items()}
+
+
+def _decode_cases(cfg, rng) -> dict:
+    """name -> (starting cache, token calls): a left-padded batch (two rows,
+    different starts), per-row depths over a cache of random contents, and
+    a prefill in three chunks."""
+    import numpy as np
+
+    def shape(b, n):
+        return (cfg.n_layers, b, n, cfg.n_kv_heads, cfg.head_dim)
+
+    def toks(b, s):
+        return rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+
+    def zeros(b, n, length, start):
+        return {"k": np.zeros(shape(b, n), np.float32),
+                "v": np.zeros(shape(b, n), np.float32),
+                "length": np.asarray(length, np.int32),
+                "start": np.asarray(start, np.int32)}
+
+    padded = toks(2, 16)
+    padded[0, :5] = 0
+    per_row = zeros(3, 48, [7, 20, 0], [0, 3, 0])
+    per_row["k"] = rng.standard_normal(shape(3, 48)).astype(np.float32)
+    per_row["v"] = rng.standard_normal(shape(3, 48)).astype(np.float32)
+    prompt = toks(1, 48)
+    prompt[0, :6] = 0
+    return {
+        "left_padded": (zeros(2, 64, 0, [5, 0]),
+                        [padded] + [toks(2, 1) for _ in range(4)]),
+        "per_row_depths": (per_row, [toks(3, 1) for _ in range(4)]),
+        "chunked_prefill": (zeros(1, 64, 0, [6]),
+                            [prompt[:, i:i + 16] for i in (0, 16, 32)]),
+    }
+
+
+def collect(engine, tokens, **kw) -> list:
+    """One generate() stream, in its own event loop."""
+    import asyncio
+
+    return asyncio.run(_agen_list(engine.generate(tokens, **kw)))
+
+
+def serve_scenarios() -> dict:
+    """name -> (engine kwargs, run): the engine paths whose greedy streams
+    chip_smoke holds card vs CPU and tests/test_torch_serve_llm.py holds
+    against the JAX package's engine. run(make) -> (streams, facts), where
+    make(**overrides) builds a fresh engine with the scenario's kwargs;
+    facts are counters and checks the callers assert on."""
+    import asyncio
+
+    import numpy as np
+
+    def one(make):
+        return [collect(make(), [5, 9, 11, 42, 7], max_new_tokens=8)], {}
+
+    rng = np.random.default_rng(0)
+    three = [rng.integers(1, 256, n).tolist() for n in (3, 11, 25)]
+
+    def concurrent(make):
+        eng = make()
+
+        async def run():
+            return await asyncio.gather(*[
+                _agen_list(eng.generate(p, max_new_tokens=6))
+                for p in three])
+        out = asyncio.run(run())
+        alone = collect(make(), three[1], max_new_tokens=6)
+        return out, {"prefills": eng.prefills, "batches": eng.batches,
+                     "alone_equals_batched": alone == out[1]}
+
+    def chunked(make):
+        eng = make()
+
+        async def run():
+            chunks_at_token = []
+
+            async def consume_first():
+                out = []
+                async for t in eng.generate([1, 2, 3], max_new_tokens=40):
+                    out.append(t)
+                    chunks_at_token.append(eng.prefill_chunks)
+                return out
+
+            first = asyncio.ensure_future(consume_first())
+            while eng.batches < 3:
+                await asyncio.sleep(0.001)
+            # a long prompt: bucket 512, chunk 64; the 192 leading pad
+            # tokens are skipped, leaving ceil(320/64) = 5 chunk rounds
+            late = await _agen_list(eng.generate(
+                [1 + i % 255 for i in range(300)], max_new_tokens=3))
+            return [await first, late], chunks_at_token
+        out, chunks_at_token = asyncio.run(run())
+        prompt = [5, 9, 11, 42, 7] * 30           # 150 tokens -> bucket 512
+        mono = collect(make(prefill_chunk=0), prompt, max_new_tokens=6)
+        split = collect(make(), prompt, max_new_tokens=6)
+        return out + [split], {
+            "prefill_chunks": eng.prefill_chunks,
+            "interleaved": any(0 < c < 5 for c in chunks_at_token),
+            "chunked_equals_monolithic": mono == split}
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, 256, 32).tolist()
+    first = prefix + rng.integers(1, 256, 8).tolist()      # start 88
+    second = prefix + rng.integers(1, 256, 20).tolist()    # start 76
+
+    def prefix_hit(make):
+        eng = make()
+        cold_first = collect(eng, first, max_new_tokens=6)
+        after_first = eng.stats()
+        warm_second = collect(eng, second, max_new_tokens=6)
+        after_second = eng.stats()
+        again = collect(eng, first, max_new_tokens=6)
+        return [cold_first, warm_second], {
+            "misses_after_first": after_first["prefix_misses"],
+            "entries_after_first": after_first["prefix_entries"],
+            "hits": after_second["prefix_hits"],
+            "hit_tokens": after_second["prefix_hit_tokens"],
+            "warm_equals_cold": warm_second == collect(
+                make(), second, max_new_tokens=6),
+            "again_equals_first": again == cold_first,
+            "hits_after_again": eng.prefix_hits}
+
+    handoff_prompt = list(range(3, 28))
+
+    def handoff(make):
+        import torch
+
+        prefill_eng, decode_eng = make(), make()
+
+        async def run():
+            h = await prefill_eng.prefill_only(handoff_prompt)
+            before = {k: h[k].clone() for k in ("k", "v")}
+            out = await _agen_list(decode_eng.generate_prefilled(
+                handoff_prompt, h, max_new_tokens=8))
+            # more traffic on both engines; the payload must not change
+            await _agen_list(prefill_eng.generate(handoff_prompt[:5],
+                                                  max_new_tokens=4))
+            await _agen_list(decode_eng.generate(handoff_prompt[:7],
+                                                 max_new_tokens=4))
+            unchanged = all(torch.equal(h[k], before[k]) for k in before)
+            shared = any(
+                h[k].untyped_storage().data_ptr()
+                == e._decode_cache[k].untyped_storage().data_ptr()
+                for k in before for e in (prefill_eng, decode_eng))
+            return h, out, unchanged, shared
+        h, out, unchanged, shared = asyncio.run(run())
+        return [out], {
+            "kv_handoffs": decode_eng.kv_handoffs,
+            "payload_keys": sorted(h), "first_streams_first":
+            out[0] == h["first"], "payload_unchanged": unchanged,
+            "payload_shares_a_cache": shared,
+            "equals_generate": out == collect(make(), handoff_prompt,
+                                              max_new_tokens=8)}
+
+    reuse = [[4, 5, 6], [7, 8, 9]]           # the second takes slot 1
+
+    def overrun(make):
+        eng = make()
+
+        async def run():      # one event loop: a new one rebuilds the cache
+            for first_tok in (1, 2, 3):  # 7 decode steps each, slot 1 free
+                await _agen_list(eng.generate([first_tok, 2, 3],
+                                              max_new_tokens=8))
+            facts = {"free_steps": eng.batches,
+                     "free_slot_depth": int(eng._decode_cache["length"][1])}
+            return await asyncio.gather(*[
+                _agen_list(eng.generate(r, max_new_tokens=8))
+                for r in reuse]), facts
+
+        async def fresh():
+            f = make()
+            return await asyncio.gather(*[
+                _agen_list(f.generate(r, max_new_tokens=8)) for r in reuse])
+        out, facts = asyncio.run(run())
+        return out, {**facts, "max_len": 16,
+                     "equals_fresh": out == asyncio.run(fresh())}
+
+    return {
+        "one_request": ({"max_batch": 4}, one),
+        "three_concurrent": ({"max_batch": 4}, concurrent),
+        "chunked_long_prompt": ({"max_batch": 4, "max_seq_len": 1024,
+                                 "prompt_buckets": (32, 512),
+                                 "prefill_chunk": 64}, chunked),
+        "prefix_hit": ({"max_batch": 2, "max_seq_len": 256,
+                        "prompt_buckets": (32, 128)}, prefix_hit),
+        "prefill_only_handoff": ({"max_batch": 4}, handoff),
+        "free_slot_overrun_reuse": ({"max_batch": 2, "max_seq_len": 16},
+                                    overrun),
+    }
+
+
+def phase_serve_parity(device: str = "cuda") -> None:
+    """The debug model in f32 with TF32 off: decode_step logits and cache,
+    and the engine's greedy streams, on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import params_to_numpy
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 1e-4
+    rng = np.random.default_rng(0)
+    with f32_presets(llama):
+        cfg = llama.config_for("debug")
+        params_np = params_to_numpy(llama.init_params(cfg, seed=0,
+                                                      device="cpu"))
+        decode = {}
+        for name, (cache_np, calls) in _decode_cases(cfg, rng).items():
+            card = _decode_case(llama, params_np, cfg, cache_np, calls, device)
+            cpu = _decode_case(llama, params_np, cfg, cache_np, calls, "cpu")
+            errs = [_allclose_err(a, b, tol) for a, b in zip(card[0], cpu[0])]
+            errs += [_allclose_err(card[1][k], cpu[1][k], tol)
+                     for k in ("k", "v")]
+            decode[name] = {"allclose_ratio": max(errs),
+                            "length_equal": torch.equal(card[1]["length"],
+                                                        cpu[1]["length"])}
+        streams = {}
+        for name, (kw, run) in serve_scenarios().items():
+            out = {}
+            for dev in (device, "cpu"):
+                out[dev] = run(lambda dev=dev, kw=kw, **o: LLMEngine(
+                    "debug", params=params_np, device=dev, **{**kw, **o}))
+            (card, card_facts), (cpu, cpu_facts) = out[device], out["cpu"]
+            streams[name] = {"equal": card == cpu, "card": card_facts,
+                             "cpu": cpu_facts,
+                             "lengths": [len(s) for s in card]}
+    bad = [n for n, r in decode.items()
+           if not (r["allclose_ratio"] <= 1.0 and r["length_equal"])]
+    bad += [n for n, r in streams.items() if not r["equal"]]
+    facts = {n: r["card"] for n, r in streams.items()}
+    overrun = facts["free_slot_overrun_reuse"]
+    bad += [n for n, ok in (
+        ("three_concurrent", facts["three_concurrent"]["prefills"] == 3
+         and facts["three_concurrent"]["alone_equals_batched"]),
+        ("chunked_long_prompt",
+         facts["chunked_long_prompt"]["prefill_chunks"] == 5
+         and facts["chunked_long_prompt"]["chunked_equals_monolithic"]),
+        ("prefix_hit", facts["prefix_hit"]["hits"] == 1
+         and facts["prefix_hit"]["warm_equals_cold"]),
+        ("prefill_only_handoff", facts["prefill_only_handoff"]["kv_handoffs"]
+         == 1 and facts["prefill_only_handoff"]["equals_generate"]
+         and facts["prefill_only_handoff"]["payload_unchanged"]
+         and not facts["prefill_only_handoff"]["payload_shares_a_cache"]),
+        # slot 1 sat free for more steps than its cache holds, at depth 0
+        ("free_slot_overrun_reuse", overrun["equals_fresh"]
+         and overrun["free_steps"] > overrun["max_len"]
+         and overrun["free_slot_depth"] == 0),
+    ) if not ok]
+    emit("serve_parity", decode_step=decode, engine=streams, tolerance=tol,
+         ok=not bad)
+    if bad:
+        raise AssertionError(f"serve parity card vs CPU failed: {bad}")
+
+
+def _percentiles(xs: list) -> dict:
+    qs = statistics.quantiles(xs, n=100, method="inclusive")
+    return {"p50_ms": statistics.median(xs) * 1e3, "p99_ms": qs[98] * 1e3,
+            "n": len(xs)}
+
+
+def phase_serve_410m(device: str = "cuda") -> dict:
+    """The 410m preset at full width and depth, bf16 as served: decode_step
+    against the flash forward, the engine's late-join check, its load
+    window, and its decode step timed and traced."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.config_for("410m")
+    params = llama.init_params(cfg, seed=0, device=device)
+    serve_vs_flash(cfg, params, device)
+    return serve_engine_run(cfg, params, device)
+
+
+def _decode_vs_forward(cfg, params, tokens,
+                       prompt: int) -> tuple[list, list, dict, list]:
+    """decode_step over tokens[:, :prompt] then one token a step, against
+    forward(attn_impl="flash") at the same positions: (relative L2 per
+    position, the same for the dense forward against the flash one, the
+    flash launches of that forward, a control's relative L2). The control
+    decodes with every position after the prompt one too far (the cache's
+    depth bumped by one, so rope is off by one and an unwritten slot is
+    visible): a fault the limit must catch."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+
+    def decode(bump: int) -> list:
+        cache = llama.init_kv_cache(cfg, 1, device=tokens.device)
+        out, cache = llama.decode_step(params, cache, tokens[:, :prompt], cfg)
+        cache["length"] = cache["length"] + bump
+        rows = [out]
+        for i in range(prompt, tokens.shape[1]):
+            out, cache = llama.decode_step(params, cache, tokens[:, i:i + 1],
+                                           cfg)
+            rows.append(out)
+        return rows
+
+    with torch.inference_mode():
+        dec, wrong = decode(0), decode(1)
+        reset_launches()
+        fwd = llama.forward(params, tokens, dataclasses.replace(
+            cfg, attn_impl="flash", remat=False))[0, prompt - 1:]
+        fwd_launches = dict(launches)
+        dense = llama.forward(params, tokens, dataclasses.replace(
+            cfg, attn_impl="xla", remat=False))[0, prompt - 1:]
+    return ([_rel_l2(d[0], f) for d, f in zip(dec, fwd)],
+            [_rel_l2(a, b) for a, b in zip(dense, fwd)], fwd_launches,
+            [_rel_l2(w[0], f) for w, f in zip(wrong[1:], fwd[1:])])
+
+
+def serve_vs_flash(cfg, params, device: str = "cuda") -> dict:
+    """decode_step (a 1024-token prefill, then 8 teacher-forced steps)
+    against forward(attn_impl="flash") at the same positions. The check is
+    made in f32 with TF32 off, at relative L2 1e-4, where a wrong decode
+    (the off-by-one control) reads far above the limit; the bf16 reading,
+    as served, is printed beside it with its own control."""
+    import dataclasses
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1032), generator=gen,
+                           device=device)
+    tol = 1e-4
+    res = {}
+    for name, c in (("f32", dataclasses.replace(cfg, dtype=torch.float32)),
+                    ("bf16", cfg)):
+        rel, floor, fwd_launches, control = _decode_vs_forward(
+            c, params, tokens, 1024)
+        res[name] = {"rel_l2": rel, "dense_forward_vs_flash_rel_l2": floor,
+                     "control_rel_l2": control,
+                     "flash_launches": fwd_launches}
+    f32 = res["f32"]
+    ok = (max(f32["rel_l2"]) <= tol and min(f32["control_rel_l2"]) > tol
+          and all(r["flash_launches"]["flash_fwd"] == cfg.n_layers
+                  for r in res.values()))
+    emit("serve_410m_vs_flash", positions=list(range(1023, 1032)),
+         tolerance_f32=tol, expected_flash_fwd=cfg.n_layers, **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"decode_step vs flash forward: {res}")
+    return res
+
+
+def _cache_finite(eng) -> bool:
+    return all(bool(eng._decode_cache[k].isfinite().all()) for k in "kv")
+
+
+def serve_late_join(eng, cfg) -> dict:
+    """A correctness check of continuous batching, not a measurement: 7
+    concurrent greedy requests (prompts of 100-1000 tokens, 64 new tokens),
+    then a late 32-token request (3 new tokens) into the eighth slot while
+    they decode. Every stream must be complete, the late one done within 6
+    decode steps while the others still run, and the cache finite."""
+    import asyncio
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(100, 1001, 7).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    late_prompt = rng.integers(0, cfg.vocab_size, 32).tolist()
+    new_tokens, late_new = 64, 3
+
+    async def run():
+        tasks = [asyncio.ensure_future(_agen_list(
+            eng.generate(p, max_new_tokens=new_tokens))) for p in prompts]
+        while sum(s is not None and s.emitted > 0
+                  for s in eng._slots) < len(prompts):   # all 7 decoding
+            await asyncio.sleep(0.001)
+        steps_before = eng.batches
+        late = await _agen_list(eng.generate(late_prompt,
+                                             max_new_tokens=late_new))
+        steps_for_late = eng.batches - steps_before
+        others_running = not all(t.done() for t in tasks)
+        return (await asyncio.gather(*tasks), late, steps_for_late,
+                others_running)
+
+    streams, late, steps_for_late, others_running = asyncio.run(run())
+    finite = _cache_finite(eng)
+    res = {"prompt_lengths": lengths,
+           "stream_lengths": [len(x) for x in streams],
+           "late_stream_length": len(late), "late_decode_steps": steps_for_late,
+           "others_running_when_late_done": others_running,
+           "cache_finite": finite}
+    ok = (res["stream_lengths"] == [new_tokens] * len(prompts)
+          and len(late) == late_new and steps_for_late <= 6
+          and others_running and finite)
+    emit("serve_410m_late_join", **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"410m late-join check failed: {res}")
+    return res
+
+
+def serve_traffic(vocab: int, n: int, rate: float, seed: int) -> list:
+    """n requests (arrival s, prompt ids, new tokens) on an open loop:
+    Poisson arrivals at `rate` requests/s, and heavy-tailed lengths with
+    prompts longer than answers. Prompt tokens: log-normal, median 256,
+    sigma 0.9, in [16, 1024]. New tokens: log-normal, median 48, sigma 0.7,
+    in [8, 256]. The mix is a choice for this engine's buckets, fitted to
+    no public trace."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n))
+    prompt_n = np.clip(rng.lognormal(np.log(256), 0.9, n), 16, 1024)
+    new_n = np.clip(rng.lognormal(np.log(48), 0.7, n), 8, 256)
+    return [(float(t), rng.integers(0, vocab, int(p)).tolist(), int(m))
+            for t, p, m in zip(arrivals, prompt_n, new_n)]
+
+
+def serve_load(eng, cfg, n: int, rate: float, seed: int = 0) -> dict:
+    """Drive the engine with serve_traffic(n, rate) and read each request's
+    phase stamps from the engine's own observation dict (the request-obs
+    contextvar a Serve replica sets): TTFT = first token - submit, TPOT =
+    (last - first token) / (tokens - 1), queue and prefill time. Gaps
+    between tokens are stamped where the consumer receives them."""
+    import asyncio
+
+    from ray_tpu_torch.serve.request_context import (_reset_request_obs,
+                                                     _set_request_obs)
+
+    traffic = serve_traffic(cfg.vocab_size, n, rate, seed)
+    obs = [{} for _ in traffic]
+    arrived: list[list[float]] = [[] for _ in traffic]
+
+    async def one(i, t0):
+        at, prompt, new = traffic[i]
+        await asyncio.sleep(max(0.0, t0 + at - time.perf_counter()))
+        token = _set_request_obs(obs[i])
+        try:
+            async for _ in eng.generate(prompt, max_new_tokens=new):
+                arrived[i].append(time.perf_counter())
+        finally:
+            _reset_request_obs(token)
+
+    async def run():
+        await eng.ensure_started()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[one(i, t0) for i in range(len(traffic))])
+        return time.perf_counter() - t0
+
+    before = eng.stats()
+    wall = asyncio.run(run())
+    after = eng.stats()
+    tokens = [len(a) for a in arrived]
+    ttft = [o["first_token"] - o["gen_start"] for o in obs]
+    tpot = [(o["last_token"] - o["first_token"]) / (o["tokens"] - 1)
+            for o in obs if o["tokens"] > 1]
+    itl = [b - a for ts in arrived for a, b in zip(ts, ts[1:])]
+    occupancy = [o["occupancy_sum"] / o["decode_steps"] for o in obs
+                 if o.get("decode_steps")]
+    return {
+        "requests": n, "rate_per_s": rate, "seed": seed,
+        "offered_s": traffic[-1][0], "wall_s": wall,
+        "complete": tokens == [m for _, _, m in traffic],
+        "cache_finite": _cache_finite(eng),
+        "prompt_tokens": sum(len(p) for _, p, _ in traffic),
+        "generated_tokens_per_s": sum(tokens) / wall,
+        "completed_per_s": n / wall,
+        "ttft": _percentiles(ttft), "tpot": _percentiles(tpot),
+        "inter_token": _percentiles(itl),
+        "queue": _percentiles([o["queue_s"] for o in obs]),
+        "prefill": _percentiles([o.get("prefill_s", 0.0) for o in obs]),
+        "mean_occupancy": statistics.mean(occupancy),
+        **{k: after[k] - before[k] for k in
+           ("prefills", "prefill_chunks", "batches", "generated_tokens")}}
+
+
+SERVE_REQUESTS = 200
+# requests/s: four fifths of the ~2/s the engine sustains at the 410m
+# preset on an H100 (--serve-sweep 1,1.5,2,3 60), where the tails are judged
+SERVE_RATE = 1.6
+
+
+def serve_engine_run(cfg, params, device: str = "cuda",
+                     rates: tuple = (SERVE_RATE,),
+                     n: int = SERVE_REQUESTS) -> dict:
+    """LLMEngine at the 410m preset: the late-join check, then the load
+    window at each rate, then the engine's decode step alone (all 8 slots;
+    its dense attention reads the whole cache whatever the depths) timed
+    on this thread and on an executor thread, as the engine runs it, and
+    traced."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine("410m", max_batch=8, prompt_buckets=(128, 512, 1024),
+                    prefill_chunk=256, params=params, device=device)
+    # warm-up: every bucket's prefill, chunked and not, and decode steps
+    for i, m in enumerate((100, 400, 1000)):
+        collect(eng, [1 + i] * m, max_new_tokens=4)
+    serve_late_join(eng, cfg)
+    reset_launches()
+    loads = []
+    for rate in rates:
+        # each asyncio.run leaves its cancelled tasks' frames in reference
+        # cycles, with whatever those frames hold: collect them first
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        load = serve_load(eng, cfg, n, rate)
+        load["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        loads.append(load)
+    engine_launches = dict(launches)
+
+    def one_step():
+        eng._decode_step_all(eng._epoch)
+
+    def timed(call) -> dict:
+        step_s = []
+        for _ in range(23):
+            t0 = time.perf_counter()
+            call()
+            step_s.append(time.perf_counter() - t0)
+        return _percentiles(step_s[3:])
+    with ThreadPoolExecutor(1) as pool:
+        step_thread = timed(lambda: pool.submit(one_step).result())
+    step_main = timed(one_step)
+    prof = profile_call(one_step, "profile_serve_decode_step")
+    res = {**loads[-1], "sweep": loads[:-1],
+           "decode_step": step_main,
+           "decode_step_executor_thread": step_thread,
+           "launches": engine_launches,
+           "traced_decode_step": {k: prof[k] for k in (
+               "traced_step_wall_ms", "device_busy_ms",
+               "device_idle_share")},
+           "max_batch": 8, "prompt_buckets": [128, 512, 1024],
+           "prefill_chunk": 256, "n_layers": cfg.n_layers}
+    ok = all(x["complete"] and x["cache_finite"] for x in loads)
+    emit("serve_410m", **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"410m engine run failed its checks: {res}")
     return res
 
 
@@ -628,6 +1242,15 @@ def main(argv: list[str]) -> int:
         phase_device()
         compare(argv[1])
         return 0
+    if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
+        from ray_tpu_torch.models import llama
+
+        phase_device()
+        cfg = llama.config_for("410m")
+        serve_engine_run(cfg, llama.init_params(cfg, seed=0, device="cuda"),
+                         rates=tuple(float(r) for r in argv[1].split(",")),
+                         n=int(argv[2]))
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -636,6 +1259,8 @@ def main(argv: list[str]) -> int:
     table = phase_kernels(info["name"])
     phase_train_parity()
     counts = phase_train_410m(info["name"], STEPS_410M)["launches"]
+    phase_serve_parity()
+    phase_serve_410m()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

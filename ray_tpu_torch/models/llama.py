@@ -1,5 +1,5 @@
-"""Llama-family transformer, training half (counterpart of
-ray_tpu/models/llama.py).
+"""Llama-family transformer (counterpart of ray_tpu/models/llama.py): the
+training half and the KV-cache decode half.
 
 * Params are a plain dict of tensors with the reference's keys and layouts:
   per-layer weights are stacked on a leading ``[n_layers]`` axis, and weights
@@ -15,8 +15,13 @@ ray_tpu/models/llama.py).
   selective checkpointing; ``remat_save_attn`` also saves the flash
   forward's outputs, so the backward does not rerun the forward kernel.
 * Attention goes to the flash kernels or the dense path (``_attention``).
+* Decoding (``init_kv_cache``, ``decode_step``) appends to a KV cache that it
+  writes **in place**: torch has no buffer donation, so ``decode_step``
+  mutates the cache dict it is given and returns it. Write offsets are
+  clamped into the cache as ``dynamic_update_slice`` clamps them; a rope
+  position past the table raises, where the reference gathers NaN.
 
-Not in this slice: MoE, LoRA, ring/Ulysses attention and the decode half.
+Not in this slice: MoE, LoRA and ring/Ulysses attention.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 # registers the ray_tpu_torch::flash_fwd op that remat_save_attn names
 import ray_tpu_torch.ops.cuda.flash_attention  # noqa: F401
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.attention import (NEG_INF, _repeat_kv,
+                                         dot_product_attention)
 from ray_tpu_torch.ops.cross_entropy import fused_lm_head_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -302,3 +308,144 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig):
         x, _head_matrix(params, cfg), batch["targets"])
     loss = ce_loss + moe_aux
     return loss, {"loss": ce_loss, "tokens": n_tok, "moe_aux": moe_aux}
+
+
+# ----------------------------------------------------------------- decoding
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
+                  device: str | torch.device | None = None) -> dict:
+    """A zeroed KV cache: ``k``/``v`` ``[n_layers, batch, max_len, n_kv_heads,
+    head_dim]`` in ``cfg.dtype``, ``length`` (int32 scalar: the write cursor)
+    and ``start`` (int32 ``[batch]``: each row's first real slot; left-pad
+    slots ``[0, start)`` are masked and rope positions are start-relative)."""
+    dev = resolve_device(device)
+    max_len = max_len or cfg.max_seq_len
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "length": torch.zeros((), dtype=torch.int32, device=dev),
+        "start": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def kv_cache_logical_axes() -> dict:
+    return {"k": ("layers", "batch", None, "kv_heads", "head_dim"),
+            "v": ("layers", "batch", None, "kv_heads", "head_dim"),
+            "length": (), "start": ("batch",)}
+
+
+def _write_kv(cache: torch.Tensor, new: torch.Tensor,
+              cache_len: torch.Tensor) -> None:
+    """cache[i, off_i : off_i + s] = new[i] in place, for every row i, where
+    off = cache_len (a scalar, or ``[b]`` per row) clamped into
+    ``[0, max_len - s]`` as ``dynamic_update_slice`` clamps it."""
+    b, max_len, nkv, hd = cache.shape
+    s = new.shape[1]
+    off = cache_len.clamp(0, max_len - s).expand(b)
+    rows = torch.arange(b, device=cache.device) * max_len
+    slots = torch.arange(s, device=cache.device)
+    flat = (rows + off)[:, None] + slots[None, :]
+    cache.view(b * max_len, nkv, hd).index_copy_(
+        0, flat.reshape(-1), new.reshape(b * s, nkv, hd))
+
+
+def _decode_block(cfg: LlamaConfig, x, layer, k_cache, v_cache, cos, sin,
+                  positions, cache_len, start=None, abs_positions=None):
+    """Single-step (or chunked prefill) block with KV cache.
+
+    x: [b, s, d]; k_cache/v_cache: [b, max_len, nkv, hd], written in place
+    at [cache_len, cache_len + s) (per row when cache_len is [b]).
+    `positions` are rope positions (start-relative for left-padded rows),
+    within the rope table (decode_step checks); `abs_positions` are cache-slot positions used
+    for masking; `start` [b] hides the left-pad slots of each row.
+    """
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = _proj(cfg, layer, "wq", h).reshape(b, s, nh, hd)
+    kk = _proj(cfg, layer, "wk", h).reshape(b, s, nkv, hd)
+    vv = _proj(cfg, layer, "wv", h).reshape(b, s, nkv, hd)
+    q = apply_rope(q, cos, sin, positions)
+    kk = apply_rope(kk, cos, sin, positions)
+    _write_kv(k_cache, kk, cache_len)
+    _write_kv(v_cache, vv, cache_len)
+    # mask: key slot j visible iff start <= j <= query slot
+    max_len = k_cache.shape[1]
+    q_pos = positions if abs_positions is None else abs_positions  # [b, s]
+    k_pos = torch.arange(max_len, device=x.device)[None, :]
+    mask = k_pos[:, None, :] <= q_pos[..., None]          # [b, s, max_len]
+    if start is not None:
+        mask = mask & (k_pos[:, None, :] >= start[:, None, None])
+    kr = _repeat_kv(k_cache, nh // nkv)
+    vr = _repeat_kv(v_cache, nh // nkv)
+    # f32 logits from the cache-typed operands (preferred_element_type)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kr.float()) * (hd ** -0.5)
+    # -1e30, not -inf: a fully masked pad row stays finite
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+    attn = torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(b, s, nh * hd)
+    x = x + _proj(cfg, layer, "wo", attn)
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    x = x + _proj(cfg, layer, "w_down",
+                  F.silu(_proj(cfg, layer, "w_gate", h))
+                  * _proj(cfg, layer, "w_up", h))
+    return x, k_cache, v_cache
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: LlamaConfig) -> tuple[torch.Tensor, dict]:
+    """Append `tokens` [b, s] to the cache, return logits for the last
+    position [b, vocab] (f32) and the cache. s=1 for autoregressive decode;
+    larger s = (chunked) prefill.
+
+    The cache is **mutated**: its k/v are written in place and its
+    ``length`` advanced by s; the same dict is returned. Clone it first to
+    keep the old state.
+
+    cache["length"] may be a scalar (whole batch in lock-step, the
+    left-padded batched path) or shape [b] (per-row depths: the
+    continuous-batching slot path, where each row is an independent request
+    and writes at its own cache offset).
+
+    A rope position past the table (``max_seq_len``) raises ValueError,
+    before anything is written: the reference gathers NaN there, and on
+    the card the gather is a device-side assert. The check reads the
+    largest position back to the host (one small copy per call)."""
+    _check_ported(cfg)
+    if "lora" in params:
+        raise NotImplementedError("LoRA adapters are not ported yet")
+    b, s = tokens.shape
+    dev = tokens.device
+    cache_len = torch.as_tensor(cache["length"], dtype=torch.int32,
+                                device=dev)
+    steps = torch.arange(s, device=dev)
+    if cache_len.dim() == 0:
+        abs_positions = (cache_len + steps)[None, :].expand(b, s)
+    else:
+        abs_positions = cache_len[:, None] + steps[None, :]
+    start = cache.get("start")
+    if start is None:
+        positions = abs_positions
+    else:
+        # rope positions are relative to each row's first real token
+        positions = (abs_positions - start[:, None]).clamp(min=0)
+    last = int(positions.max())
+    if last >= cfg.max_seq_len:
+        raise ValueError(
+            f"rope position {last} is past the table of max_seq_len="
+            f"{cfg.max_seq_len}: a row of this cache decodes too deep")
+    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                cfg.rope_theta, device=dev)
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    for weights, kc, vc in zip(per_layer, cache["k"].unbind(0),
+                               cache["v"].unbind(0)):
+        x, _, _ = _decode_block(cfg, x, dict(zip(names, weights)), kc, vc,
+                                cos, sin, positions, cache_len, start=start,
+                                abs_positions=abs_positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, -1] @ _head_matrix(params, cfg)).float()
+    cache["length"] = cache_len + s
+    return logits, cache

@@ -2,6 +2,7 @@
 entry points run on the card unless told otherwise, and its kernel wrappers
 never fall back to a plain version on a CUDA tensor."""
 
+import ast
 import inspect
 import os
 import pkgutil
@@ -43,10 +44,13 @@ def _entry_points():
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+    from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = llama.config_for("debug")
     return {
         "init_params": lambda: llama.init_params(cfg),
+        "init_kv_cache": lambda: llama.init_kv_cache(cfg, 1),
+        "LLMEngine": lambda: LLMEngine("debug"),
         "params_from_numpy": lambda: params_from_numpy({}),
         "build_train_step": lambda: build_train_step(
             lambda p, b: (None, {}), adamw(1e-3), {}),
@@ -55,7 +59,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_params", "params_from_numpy",
-                                  "build_train_step", "resolve_device"])
+                                  "build_train_step", "resolve_device",
+                                  "init_kv_cache", "LLMEngine"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -71,6 +76,24 @@ def test_kernel_wrappers_have_no_fallback():
         assert "_plain(" not in inspect.getsource(fn)
 
 
+def test_engine_has_no_cpu_fallback():
+    """No exception handler in the decode path or the engine carries on
+    elsewhere: none names a device or calls a plain version, and the
+    step's failure path (reseed, then raise) has no device in it."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import llm
+
+    for module in (llm, llama):
+        tree = ast.parse(inspect.getsource(module))
+        handlers = [n for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)]
+        for handler in handlers:
+            body = ast.unparse(handler).lower()
+            for word in ("cpu", "device", "_plain("):
+                assert word not in body, (module.__name__, body)
+    assert "cpu" not in inspect.getsource(llm.LLMEngine._step).lower()
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 64, 2, 64)
     with pytest.raises(ValueError, match="must be on"):
@@ -82,4 +105,6 @@ def test_every_module_is_walked():
                                                    "ray_tpu_torch.")}
     assert {"ray_tpu_torch.ops.cuda.flash_attention",
             "ray_tpu_torch.models.llama", "ray_tpu_torch.parallel.spmd",
-            "ray_tpu_torch.models.convert"} <= names
+            "ray_tpu_torch.models.convert", "ray_tpu_torch.serve.llm",
+            "ray_tpu_torch.serve.request_context",
+            "ray_tpu_torch.serve.handle"} <= names

@@ -37,6 +37,24 @@ caught, so any failure exits non-zero):
    a load window of SERVE_REQUESTS open-loop requests at SERVE_RATE
    (serve_traffic): TTFT, TPOT, inter-token latency, tokens/s, peak
    memory; then the decode step alone, timed and traced.
+8. lora_parity, moe_parity: the debug model in f32 with TF32 off, card vs
+   CPU, 3 AdamW steps each, to 1e-4: a frozen base with a nonzero rank-4
+   adapter on all seven targets (the base bit-identical after the steps;
+   decode_step with the adapter, a chunked prefill and 4 steps), then 4
+   experts top-2 (losses and moe_aux; the routing margin printed).
+9. lora_train_410m, moe_train_410m: the 410m train step as in 5 with a
+   rank-16 adapter on wq wk wv wo and only the adapter trained (a checksum
+   of the frozen base held), then with 8 experts, top-2, capacity factor
+   1.25 in every layer; each holds 48/24/24 flash launches a step and
+   prints step time, tokens/s, peak memory and its traced step (the MoE
+   step's device time split into dispatch/combine einsums, expert FFN,
+   flash and the rest).
+10. lora_serve_410m: the 410m engine with rank-16 adapters: a zero-B
+   adapter's greedy streams equal the base engine's, a nonzero one's
+   differ; decode with it against the flash forward with it (f32, relative
+   L2 1e-4, with the off-by-one control); MultiplexedLoraService over 3
+   adapter ids with 2 resident, sharing the base's storage; the decode
+   step's time with and without an adapter.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -482,7 +500,9 @@ def compare(other: str) -> None:
         print(lines[-1], flush=True)
 
 
-def _train(cfg, params_np, batch_np, device, steps):
+def _train(cfg, params_np, batch_np, device, steps, trainable_keys=None):
+    """`steps` AdamW steps from numpy params: ({"loss", "moe_aux"} per step,
+    the final state)."""
     import torch
 
     from ray_tpu_torch.models import llama
@@ -492,13 +512,17 @@ def _train(cfg, params_np, batch_np, device, steps):
     params = params_from_numpy(params_np, device=device, cfg=cfg)
     step, state = build_train_step(
         lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params,
-        device=device)
+        device=device, trainable_keys=trainable_keys)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
-    losses = []
+    history = []
     for _ in range(steps):
         state, aux = step(state, batch)
-        losses.append(aux["loss"].item())
-    return losses
+        history.append({k: aux[k].item() for k in ("loss", "moe_aux")})
+    return history, state
+
+
+def _losses(history: list, key: str = "loss") -> list:
+    return [h[key] for h in history]
 
 
 def phase_train_parity() -> None:
@@ -519,9 +543,9 @@ def phase_train_parity() -> None:
     from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
 
     reset_launches()
-    card = _train(cfg, params_np, batch, "cuda", 3)
+    card = _losses(_train(cfg, params_np, batch, "cuda", 3)[0])
     counts = dict(launches)
-    cpu = _train(cfg, params_np, batch, "cpu", 3)
+    cpu = _losses(_train(cfg, params_np, batch, "cpu", 3)[0])
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
     # f32 throughout, TF32 off: only summation order differs
     ok = rel <= 1e-4 and all(counts[n] > 0 for n in counts)
@@ -531,28 +555,47 @@ def phase_train_parity() -> None:
         raise AssertionError("card and CPU train trajectories differ")
 
 
-def phase_train_410m(device_name: str, steps: int) -> dict:
+BATCH_410M, SEQ_410M = 8, 2048
+
+
+def config_410m(**overrides):
+    """The 410m preset as the train phases run it: s2048, remat "dots",
+    flash attention."""
+    from ray_tpu_torch.models import llama
+
+    return llama.config_for("410m", max_seq_len=SEQ_410M, remat=True,
+                            remat_policy="dots", attn_impl="flash",
+                            **overrides)
+
+
+def run_410m_steps(cfg, params: dict, steps: int,
+                   trainable_keys=None) -> dict:
+    """build_train_step over `params` (consumed: the step holds its own
+    copy), 2 warm-up steps, then `steps` timed steps on one random batch
+    from a seed, with the launch counters and the peak memory read over the
+    timed steps only. Returns the readings and the step, state and batch."""
+    import gc
+
     import torch
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
     from ray_tpu_torch.parallel.spmd import adamw, build_train_step
 
-    batch_size, seq = 8, 2048
-    cfg = llama.config_for("410m", max_seq_len=seq, remat=True,
-                           remat_policy="dots", attn_impl="flash")
-    params = llama.init_params(cfg, seed=0)
     step, state = build_train_step(
-        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params)
-    del params
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params,
+        trainable_keys=trainable_keys)
+    params.clear()
+    gc.collect()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq),
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH_410M, SEQ_410M),
                            generator=gen, device="cuda")
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
-    losses = []
+    losses, moe_aux = [], []
     for _ in range(2):                                   # warm-up
         state, aux = step(state, batch)
         losses.append(aux["loss"].item())
+        moe_aux.append(aux["moe_aux"].item())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                                     # counts: main path only
@@ -560,30 +603,49 @@ def phase_train_410m(device_name: str, steps: int) -> dict:
     for _ in range(steps):
         state, aux = step(state, batch)
         losses.append(aux["loss"].item())
+        moe_aux.append(aux["moe_aux"].item())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(launches)
-    step_ms = dt / steps * 1e3
-    tok_s = batch_size * seq * steps / dt
-    peak_flops, _ = peaks(device_name)
-    mfu = tok_s * cfg.flops_per_token() / peak_flops
     # remat "dots" saves matmul outputs only, so the backward reruns each
     # block's flash forward: 2 forward launches per layer, 1 dq, 1 dkv
     want = {"flash_fwd": 2 * cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps}
-    finite = all(math.isfinite(x) for x in losses)
-    emit("train_410m", losses=losses, step_ms=step_ms, tokens_per_s=tok_s,
-         mfu=mfu, peak_flops=peak_flops, flops_per_token=cfg.flops_per_token(),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=counts, expected_launches=want, steps=steps,
-         batch=batch_size, seq=seq, n_layers=cfg.n_layers)
-    if not finite or not losses[-1] < losses[0]:
-        raise AssertionError(f"410m losses not finite and falling: {losses}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
-    return {"launches": counts, "step_ms": step_ms,
-            **profile_step(step, state, batch)}
+    return {"losses": losses, "moe_aux": moe_aux,
+            "step_ms": dt / steps * 1e3,
+            "tokens_per_s": BATCH_410M * SEQ_410M * steps / dt,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": dict(launches), "expected_launches": want,
+            "step": step, "state": state, "batch": batch}
+
+
+def _check_410m_run(phase: str, run: dict) -> None:
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase} losses not finite and falling: {losses}")
+    if run["launches"] != run["expected_launches"]:
+        raise AssertionError(f"{phase} launch counts {run['launches']} != "
+                             f"expected {run['expected_launches']}")
+
+
+def phase_train_410m(device_name: str, steps: int) -> dict:
+    from ray_tpu_torch.models import llama
+
+    cfg = config_410m()
+    run = run_410m_steps(cfg, llama.init_params(cfg, seed=0), steps)
+    peak_flops, _ = peaks(device_name)
+    mfu = run["tokens_per_s"] * cfg.flops_per_token() / peak_flops
+    emit("train_410m", losses=run["losses"], step_ms=run["step_ms"],
+         tokens_per_s=run["tokens_per_s"], mfu=mfu, peak_flops=peak_flops,
+         flops_per_token=cfg.flops_per_token(),
+         peak_mem_gb=run["peak_mem_gb"], launches=run["launches"],
+         expected_launches=run["expected_launches"], steps=steps,
+         batch=BATCH_410M, seq=SEQ_410M, n_layers=cfg.n_layers)
+    _check_410m_run("410m", run)
+    return {"launches": run["launches"], "step_ms": run["step_ms"],
+            "tokens_per_s": run["tokens_per_s"], "mfu": mfu,
+            "peak_mem_gb": run["peak_mem_gb"],
+            **profile_step(run["step"], run["state"], run["batch"])}
 
 
 def _kernel_group(name: str) -> str:
@@ -597,21 +659,25 @@ def _kernel_group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def profile_step(step, state, batch) -> dict:
+def profile_step(step, state, batch, phase: str = "profile_410m") -> dict:
     """Device time by kernel over one traced 410m step: where the time goes
     and how long the card sits idle."""
-    return profile_call(lambda: step(state, batch), "profile_410m")
+    return profile_call(lambda: step(state, batch), phase)
 
 
-def profile_call(fn, phase: str) -> dict:
+def profile_call(fn, phase: str, op_group=None) -> dict:
     """Device time by kernel group over one traced call of fn, and the
-    card's idle share of the call's wall time; emitted as `phase`."""
+    card's idle share of the call's wall time; emitted as `phase`. With
+    `op_group(op_event) -> label or None`, the trace also records input
+    shapes, and the device time of the kernels each operator launched
+    itself is summed by label into "ops_ms"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=op_group is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -635,6 +701,15 @@ def profile_call(fn, phase: str) -> dict:
     res = {"traced_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    if op_group is not None:
+        ops: dict[str, float] = {}
+        for ev in prof.events():
+            label = (op_group(ev) if ev.device_type == DeviceType.CPU
+                     else None)
+            if label is not None:
+                ops[label] = ops.get(label, 0.0) + (
+                    ev.self_device_time_total / 1e3)
+        res["ops_ms"] = ops
     emit(phase, **res, launches_traced=sum(n for _, _, n in rows),
          top=[{"kernel": name[:90], "ms": ms, "calls": n}
               for name, ms, n in rows[:12]])
@@ -1225,6 +1300,400 @@ def serve_engine_run(cfg, params, device: str = "cuda",
     return res
 
 
+# ------------------------------------------------------------ LoRA and MoE
+LORA_RANK_410M = 16      # bench.py's LoRA leg: rank 16 on wq wk wv wo
+
+
+def lora_numpy(cfg, rank: int, targets: tuple, seed: int,
+               b_scale: float) -> dict:
+    """An adapter subtree as numpy: A ~ N(0, 1/r), B ~ N(0, b_scale)."""
+    import numpy as np
+
+    from ray_tpu_torch.models.lora import _target_dims
+
+    rng = np.random.default_rng(seed)
+    layers = {}
+    for name in targets:
+        d_in, d_out = _target_dims(cfg, name)
+        layers[name + "_a"] = (rng.standard_normal(
+            (cfg.n_layers, d_in, rank)) / np.sqrt(rank)).astype(np.float32)
+        layers[name + "_b"] = (b_scale * rng.standard_normal(
+            (cfg.n_layers, rank, d_out))).astype(np.float32)
+    return {"layers": layers}
+
+
+def nonzero_adapter(cfg, rank: int, seed: int, b_std: float,
+                    device: str = "cuda") -> dict:
+    """init_lora_params (A ~ N(0, 1/r), B = 0) with B drawn N(0, b_std):
+    an adapter as training would leave it."""
+    import torch
+
+    from ray_tpu_torch.models import lora
+
+    adapter = lora.init_lora_params(
+        cfg, lora.LoraConfig(rank=rank, alpha=cfg.lora_alpha), seed=seed,
+        device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for key, b in adapter["layers"].items():
+        if key.endswith("_b"):
+            b.normal_(0.0, b_std, generator=gen)
+    return adapter
+
+
+def base_checksum(tree: dict) -> int:
+    """An exact checksum of a tree of f32 tensors: the sum of their bits as
+    int32, in int64. Any write that changes a bit moves it (bar collisions
+    a test could not stage by accident)."""
+    import torch
+
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    for leaf in _tree_leaves(tree):
+        total += leaf.detach().contiguous().view(torch.int32).sum(
+            dtype=torch.int64)
+    return int(total)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def moe_margins(llama):
+    """Record the routing margin of every MoE layer the model runs inside
+    the block: the smallest gap between the k-th and (k+1)-th router
+    probability over its tokens, in f64 from the layer's own input. A gap
+    below the comparison's tolerance could flip a token's expert between
+    two devices. Yields the list the margins land in."""
+    import torch
+
+    ffn, margins = llama.moe_ffn, []
+
+    def spy(params, x, cfg, **kw):
+        logits = x.detach().double() @ params["router"].detach().double()
+        top = torch.softmax(logits, -1).sort(-1, descending=True).values
+        margins.append(float((top[..., cfg.top_k - 1]
+                              - top[..., cfg.top_k]).min()))
+        return ffn(params, x, cfg, **kw)
+
+    llama.moe_ffn = spy
+    try:
+        yield margins
+    finally:
+        llama.moe_ffn = ffn
+
+
+def _parity_batch(cfg, b: int = 4):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (b, cfg.max_seq_len))
+    return {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+
+
+def phase_lora_parity(device: str = "cuda") -> None:
+    """The debug preset in f32 (TF32 off, flash, remat "dots") with a
+    nonzero rank-4 adapter on all seven targets: 3 frozen-base AdamW steps
+    card vs CPU, the base bit-identical after them on the card, and
+    decode_step with the adapter (a chunked prefill, then 4 steps) card vs
+    CPU."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 1e-4
+    cfg = llama.config_for("debug", dtype=torch.float32, attn_impl="flash",
+                           remat=True, remat_policy="dots")
+    targets = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    tree = {**params_to_numpy(llama.init_params(cfg, seed=0, device="cpu")),
+            "lora": lora_numpy(cfg, 4, targets, seed=1, b_scale=0.05)}
+    batch = _parity_batch(cfg)
+    base = {k: v for k, v in params_from_numpy(tree, device=device,
+                                               cfg=cfg).items()
+            if k != "lora"}
+    reset_launches()
+    card, state = _train(cfg, tree, batch, device, 3, trainable_keys=("lora",))
+    counts = dict(launches)
+    cpu, _ = _train(cfg, tree, batch, "cpu", 3, trainable_keys=("lora",))
+    card, cpu = _losses(card), _losses(cpu)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    frozen = {name: all(torch.equal(a, b) for a, b in zip(
+        _tree_leaves(state["frozen"][name]), _tree_leaves(base[name])))
+        for name in base}
+    no_grad = all(t.grad is None for t in _tree_leaves(state["frozen"]))
+    rng = np.random.default_rng(2)
+    cache_np, calls = _decode_cases(cfg, rng)["chunked_prefill"]
+    calls = calls + [rng.integers(1, cfg.vocab_size, (1, 1)).astype(np.int32)
+                     for _ in range(4)]
+    card_dec = _decode_case(llama, tree, cfg, cache_np, calls, device)
+    cpu_dec = _decode_case(llama, tree, cfg, cache_np, calls, "cpu")
+    dec_err = max(_allclose_err(a, b, tol)
+                  for a, b in zip(card_dec[0], cpu_dec[0]))
+    ok = (rel <= tol and all(frozen.values()) and no_grad
+          and all(counts[n] > 0 for n in counts) and dec_err <= 1.0
+          and card[-1] < card[0])
+    emit("lora_parity", card_losses=card, cpu_losses=cpu, max_rel_diff=rel,
+         tolerance=tol, base_bit_identical=frozen, frozen_have_no_grad=no_grad,
+         launches=counts, decode_allclose_ratio=dec_err,
+         decode_calls=len(calls), rank=4, targets=list(targets), ok=ok)
+    if not ok:
+        raise AssertionError("LoRA parity card vs CPU failed")
+
+
+def phase_moe_parity(device: str = "cuda") -> None:
+    """The debug preset with 4 experts, top-2, in f32 (TF32 off, flash,
+    remat "dots"): 3 AdamW steps card vs CPU, losses and moe_aux."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 1e-4
+    cfg = llama.config_for("debug", dtype=torch.float32, attn_impl="flash",
+                           remat=True, remat_policy="dots",
+                           moe_num_experts=4, moe_top_k=2)
+    params_np = params_to_numpy(llama.init_params(cfg, seed=0, device="cpu"))
+    batch = _parity_batch(cfg)
+    with moe_margins(llama) as margins, torch.no_grad():
+        llama.forward(params_from_numpy(params_np, device="cpu", cfg=cfg),
+                      torch.from_numpy(batch["tokens"]), cfg)
+    card, _ = _train(cfg, params_np, batch, device, 3)
+    cpu, _ = _train(cfg, params_np, batch, "cpu", 3)
+    rel = {key: max(abs(a - b) / abs(b) for a, b in zip(
+        _losses(card, key), _losses(cpu, key))) for key in ("loss", "moe_aux")}
+    ok = (max(rel.values()) <= tol and min(_losses(card, "moe_aux")) > 0
+          and card[-1]["loss"] < card[0]["loss"])
+    emit("moe_parity", card=card, cpu=cpu, max_rel_diff=rel, tolerance=tol,
+         routing_margin_min=min(margins), experts=4, top_k=2, ok=ok)
+    if not ok:
+        raise AssertionError("MoE parity card vs CPU failed")
+
+
+def phase_lora_train_410m(device_name: str, steps: int, full: dict) -> dict:
+    """The 410m train step with a rank-16 adapter on wq wk wv wo (bench.py's
+    LoRA leg) and trainable_keys=("lora",); `full` holds the full train
+    step's readings from this run, printed beside."""
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.models import llama, lora
+
+    cfg = config_410m()
+    params = llama.init_params(cfg, seed=0)
+    params["lora"] = lora.init_lora_params(
+        cfg, lora.LoraConfig(rank=LORA_RANK_410M, alpha=cfg.lora_alpha),
+        seed=2)
+    before = base_checksum({k: v for k, v in params.items() if k != "lora"})
+    run = run_410m_steps(cfg, params, steps, trainable_keys=("lora",))
+    peak_flops, _ = peaks(device_name)
+    # the frozen base takes no weight gradients: ~2N of the 6N FLOPs a
+    # token are not computed (bench.py's LoRA convention)
+    flops_per_token = cfg.flops_per_token() * 2 / 3
+    mfu = run["tokens_per_s"] * flops_per_token / peak_flops
+    prof = profile_step(run["step"], run["state"], run["batch"],
+                        "profile_lora_410m")
+    after = base_checksum(run["state"]["frozen"])
+    n_adapter = sum(t.numel() for t in _tree_leaves(run["state"]["params"]))
+    res = {"losses": run["losses"], "step_ms": run["step_ms"],
+           "tokens_per_s": run["tokens_per_s"], "mfu": mfu,
+           "flops_per_token": flops_per_token,
+           "peak_mem_gb": run["peak_mem_gb"], "launches": run["launches"],
+           "expected_launches": run["expected_launches"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "groups_ms": prof["groups_ms"]}
+    emit("lora_train_410m", **res, base_checksum_unchanged=before == after,
+         adapter_params=n_adapter, rank=LORA_RANK_410M,
+         targets=list(lora.DEFAULT_TARGETS), steps=steps, batch=BATCH_410M,
+         seq=SEQ_410M, full_train_step={k: full[k] for k in (
+             "step_ms", "tokens_per_s", "mfu", "peak_mem_gb",
+             "device_busy_ms", "device_idle_share", "groups_ms")})
+    _check_410m_run("lora_train_410m", run)
+    if before != after:
+        raise AssertionError("the frozen base changed during LoRA training")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25   # Mixtral-8x7B's routing
+
+
+def phase_moe_train_410m(steps: int) -> dict:
+    """The 410m widths with 8 experts, top-2, capacity factor 1.25 in every
+    layer, AdamW over all params; the traced step's device time split into
+    the dispatch/combine einsums, the expert FFN, flash and the rest."""
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    cfg = config_410m(moe_num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                      moe_capacity_factor=MOE_CAPACITY)
+    run = run_410m_steps(cfg, llama.init_params(cfg, seed=0), steps)
+    n_params = sum(t.numel() for t in _tree_leaves(run["state"]["params"]))
+
+    def op_group(ev):
+        # the einsums run as bmm: dispatch and combine contract or keep the
+        # sequence axis; the grouped expert matmuls never see it
+        if ev.name != "aten::bmm":
+            return None
+        shapes = [tuple(x) for x in (ev.input_shapes or []) if x]
+        if any(SEQ_410M in shape for shape in shapes):
+            return "dispatch/combine einsums"
+        return "expert FFN"
+
+    prof = profile_call(lambda: run["step"](run["state"], run["batch"]),
+                        "profile_moe_410m", op_group=op_group)
+    split = dict(prof["ops_ms"])
+    split["flash"] = prof["groups_ms"].get("flash attention (ours)", 0.0)
+    split["rest"] = prof["device_busy_ms"] - sum(split.values())
+    res = {"losses": run["losses"], "moe_aux": run["moe_aux"],
+           "step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"],
+           "peak_mem_gb": run["peak_mem_gb"], "launches": run["launches"],
+           "expected_launches": run["expected_launches"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "device_ms_split": split}
+    capacity = max(1, int(MOE_CAPACITY * MOE_TOP_K * SEQ_410M / MOE_EXPERTS))
+    emit("moe_train_410m", **res, params=n_params, experts=MOE_EXPERTS,
+         top_k=MOE_TOP_K, capacity_factor=MOE_CAPACITY, capacity=capacity,
+         steps=steps, batch=BATCH_410M, seq=SEQ_410M,
+         mfu="not given: flops_per_token counts a dense FFN")
+    _check_410m_run("moe_train_410m", run)
+    if not min(run["moe_aux"]) > 0:
+        raise AssertionError(f"moe_aux not positive: {run['moe_aux']}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _streams(eng, prompts: list, n: int) -> list:
+    import asyncio
+
+    async def run():
+        return await asyncio.gather(*[
+            _agen_list(eng.generate(p, max_new_tokens=n)) for p in prompts])
+    return asyncio.run(run())
+
+
+def phase_lora_serve_410m(device: str = "cuda") -> dict:
+    """The 410m engine (8 slots, as serve_410m) with rank-16 adapters on the
+    attention targets: a zero-B adapter's greedy streams equal the base
+    engine's and a nonzero adapter's differ; decode_step with the nonzero
+    adapter against the flash forward with it (f32, TF32 off, relative L2
+    1e-4, with the off-by-one control); MultiplexedLoraService over 3
+    adapter ids with 2 resident; decode-step ms with and without an
+    adapter."""
+    import asyncio
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama, lora
+    from ray_tpu_torch.serve import multiplex
+    from ray_tpu_torch.serve.llm import LLMEngine, MultiplexedLoraService
+
+    cfg = llama.config_for("410m")
+    base = llama.init_params(cfg, seed=0, device=device)
+    zero = lora.init_lora_params(cfg, lora.LoraConfig(
+        rank=LORA_RANK_410M, alpha=cfg.lora_alpha), seed=3, device=device)
+    tuned = nonzero_adapter(cfg, LORA_RANK_410M, seed=4, b_std=0.01,
+                            device=device)
+    kw = {"max_batch": 8, "prompt_buckets": (128, 512, 1024),
+          "prefill_chunk": 256, "device": device}
+    engines = {name: LLMEngine("410m", params=params, **kw) for name, params
+               in (("base", base), ("zero_b", {**base, "lora": zero}),
+                   ("tuned", {**base, "lora": tuned}))}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 300, 700)]
+    streams = {name: _streams(eng, prompts, 16)
+               for name, eng in engines.items()}
+    shares = all(
+        eng.params["layers"][k].data_ptr() == t.data_ptr()
+        for eng in engines.values() for k, t in base["layers"].items())
+
+    def step_ms(eng) -> dict:
+        times = []
+        for _ in range(23):
+            t0 = time.perf_counter()
+            eng._decode_step_all(eng._epoch)
+            times.append(time.perf_counter() - t0)
+        return _percentiles(times[3:])
+    decode_ms = {name: step_ms(engines[name]) for name in ("base", "tuned")}
+
+    # decode vs the flash forward with the adapter, in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1032), generator=gen,
+                           device=device)
+    rel, floor, fwd_launches, control = _decode_vs_forward(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        {**base, "lora": tuned}, tokens, 1024)
+    tol = 1e-4
+    engines.clear()
+    gc.collect()
+
+    # three adapter ids through an LRU of two engines
+    svc = MultiplexedLoraService("410m", max_adapters_per_replica=2,
+                                 lora_rank=LORA_RANK_410M, seed=0, **kw)
+
+    async def serve(model_id: str, prompt: list) -> list:
+        token = multiplex._set_model_id(model_id)
+        try:
+            return [d async for d in svc({"tokens": prompt,
+                                          "max_new_tokens": 8})]
+        finally:
+            multiplex._reset_model_id(token)
+
+    mux = [asyncio.run(serve(i, prompts[0])) for i in ("a", "b", "c")]
+    resident = multiplex.loaded_model_ids(svc, "get_engine")
+    mux_engines = [asyncio.run(svc.get_engine(i)) for i in resident]
+    mux_shares = all(
+        eng.params["layers"][k].data_ptr() == t.data_ptr()
+        for eng in mux_engines for k, t in svc._base["layers"].items())
+    tagged = all({d["adapter"] for d in items} == {i}
+                 for items, i in zip(mux, "abc"))
+    res = {"zero_b_equals_base": streams["zero_b"] == streams["base"],
+           "tuned_differs": streams["tuned"] != streams["base"],
+           "stream_lengths": {k: [len(x) for x in v]
+                              for k, v in streams.items()},
+           "engines_share_base_storage": shares,
+           "decode_vs_flash_f32": {"rel_l2": rel, "control_rel_l2": control,
+                                   "dense_forward_vs_flash_rel_l2": floor,
+                                   "flash_launches": fwd_launches},
+           "decode_step_ms": decode_ms,
+           "multiplex": {"resident": resident, "tagged": tagged,
+                         "engines_share_base_storage": mux_shares,
+                         "stream_lengths": [len(x) for x in mux]}}
+    ok = (res["zero_b_equals_base"] and res["tuned_differs"] and shares
+          and max(rel) <= tol and min(control) > tol
+          and fwd_launches["flash_fwd"] == cfg.n_layers
+          and resident == ["b", "c"] and tagged and mux_shares
+          and all(len(x) == 16 for v in streams.values() for x in v))
+    emit("lora_serve_410m", **res, rank=LORA_RANK_410M, tolerance_f32=tol,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"410m LoRA serving failed its checks: {res}")
+    return res
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1258,13 +1727,21 @@ def main(argv: list[str]) -> int:
     phase_build()
     table = phase_kernels(info["name"])
     phase_train_parity()
-    counts = phase_train_410m(info["name"], STEPS_410M)["launches"]
+    full = phase_train_410m(info["name"], STEPS_410M)
     phase_serve_parity()
     phase_serve_410m()
+    phase_lora_parity()
+    phase_moe_parity()
+    paths = {"train_410m": full["launches"],
+             "lora_train_410m": phase_lora_train_410m(
+                 info["name"], STEPS_410M, full)["launches"],
+             "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
+    phase_lora_serve_410m()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],
-         "launches": counts[name],
+         "launches": full["launches"][name],
+         "launches_by_path": {p: c[name] for p, c in paths.items()},
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]}

@@ -1,1 +1,2 @@
-"""Models of the port: Llama (training half) and weight conversion."""
+"""Models of the port: Llama (with LoRA and MoE), the MLP, and weight
+conversion."""

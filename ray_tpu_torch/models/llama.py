@@ -20,8 +20,14 @@ training half and the KV-cache decode half.
   mutates the cache dict it is given and returns it. Write offsets are
   clamped into the cache as ``dynamic_update_slice`` clamps them; a rope
   position past the table raises, where the reference gathers NaN.
+* LoRA: a ``"lora"`` subtree (``models/lora.py``) rides the block loop beside
+  the base weights, and ``_proj`` adds its low-rank path at train and decode
+  time alike.
+* MoE: ``moe_num_experts > 0`` replaces every dense FFN with
+  ``ops.moe.moe_ffn``, whose aux loss reaches ``loss_fn``. The decode path
+  has no MoE FFN, as the reference's has none.
 
-Not in this slice: MoE, LoRA and ring/Ulysses attention.
+Not in this slice: ring/Ulysses attention (multi-GPU).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import (NEG_INF, _repeat_kv,
                                          dot_product_attention)
 from ray_tpu_torch.ops.cross_entropy import fused_lm_head_cross_entropy
+from ray_tpu_torch.ops.moe import MoEConfig, moe_ffn
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -78,6 +85,12 @@ class LlamaConfig:
     @property
     def moe(self) -> bool:
         return self.moe_num_experts > 0
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(num_experts=self.moe_num_experts,
+                         top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         aux_loss_weight=self.moe_aux_loss_weight)
 
     @property
     def head_dim(self) -> int:
@@ -137,8 +150,6 @@ def config_for(name: str, **overrides) -> LlamaConfig:
 
 
 def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError("MoE layers are not ported yet")
     if cfg.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} needs the multi-GPU slice")
@@ -159,12 +170,18 @@ def param_shapes(cfg: LlamaConfig) -> dict:
             "wo": (L, nh * hd, d),
             "attn_norm": (L, d),
             "mlp_norm": (L, d),
-            "w_gate": (L, d, h),
-            "w_up": (L, d, h),
-            "w_down": (L, h, d),
         },
         "final_norm": (d,),
     }
+    if cfg.moe:
+        E = cfg.moe_num_experts
+        shapes["layers"].update({"router": (L, d, E),
+                                 "w_gate": (L, E, d, h),
+                                 "w_up": (L, E, d, h),
+                                 "w_down": (L, E, h, d)})
+    else:
+        shapes["layers"].update({"w_gate": (L, d, h), "w_up": (L, d, h),
+                                 "w_down": (L, h, d)})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -203,10 +220,18 @@ def _attention(cfg: LlamaConfig, q, k, v):
 
 
 def _proj(cfg: LlamaConfig, layer: dict, name: str, h: torch.Tensor):
-    """Matmul against one layer weight in the compute dtype."""
-    if name + "_a" in layer:
-        raise NotImplementedError("LoRA adapters are not ported yet")
-    return h @ layer[name].to(cfg.dtype)
+    """Matmul against one layer weight in the compute dtype, plus the LoRA
+    low-rank path where the layer carries ``<name>_a``/``<name>_b`` (shared
+    by the train and decode blocks, so adapters act alike in both). The
+    [in, out] delta is never formed."""
+    dt = cfg.dtype
+    out = h @ layer[name].to(dt)
+    a = layer.get(name + "_a")
+    if a is not None:
+        scale = cfg.lora_alpha / a.shape[-1]
+        out = out + ((h @ a.to(dt)) @ layer[name + "_b"].to(dt)
+                     ) * torch.tensor(scale, dtype=dt)
+    return out
 
 
 def _block(cfg: LlamaConfig, x, layer, cos, sin, positions):
@@ -225,6 +250,11 @@ def _block(cfg: LlamaConfig, x, layer, cos, sin, positions):
     x = x + _proj(cfg, layer, "wo", attn)
 
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if cfg.moe:
+        moe_params = {k: layer[k] for k in ("router", "w_gate", "w_up",
+                                            "w_down")}
+        out, aux = moe_ffn(moe_params, h, cfg.moe_config())
+        return x + out, aux
     gate = F.silu(_proj(cfg, layer, "w_gate", h))
     up = _proj(cfg, layer, "w_up", h)
     x = x + _proj(cfg, layer, "w_down", gate * up)
@@ -263,18 +293,26 @@ def _remat_block(cfg: LlamaConfig):
                              context_fn=context_fn)
 
 
+def _stacked_layers(params: dict) -> dict:
+    """The per-layer weights stacked on [n_layers], adapters included: they
+    share the leading axis, so they ride the same loop (reference
+    ``llama.py:322-325``)."""
+    if "lora" not in params:
+        return params["layers"]
+    return {**params["layers"], **params["lora"]["layers"]}
+
+
 def backbone(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
              positions: torch.Tensor | None = None, with_aux: bool = False):
     """tokens: [b, s] int -> final hidden states [b, s, d] (cfg.dtype), or
     (hidden, moe_aux_loss) when with_aux."""
     _check_ported(cfg)
-    if "lora" in params:
-        raise NotImplementedError("LoRA adapters are not ported yet")
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    layers = _stacked_layers(params)
+    names = list(layers)
+    per_layer = zip(*(layers[n].unbind(0) for n in names))
     block = _remat_block(cfg)
     aux_sum = x.new_zeros((), dtype=torch.float32)
     for weights in per_layer:
@@ -413,8 +451,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     the card the gather is a device-side assert. The check reads the
     largest position back to the host (one small copy per call)."""
     _check_ported(cfg)
-    if "lora" in params:
-        raise NotImplementedError("LoRA adapters are not ported yet")
+    if cfg.moe:
+        raise ValueError(
+            "decode_step has no MoE FFN: the reference's decode block takes "
+            "the dense FFN keys only, so an MoE model does not decode")
     b, s = tokens.shape
     dev = tokens.device
     cache_len = torch.as_tensor(cache["length"], dtype=torch.int32,
@@ -438,8 +478,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=dev)
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    layers = _stacked_layers(params)
+    names = list(layers)
+    per_layer = zip(*(layers[n].unbind(0) for n in names))
     for weights, kc, vc in zip(per_layer, cache["k"].unbind(0),
                                cache["v"].unbind(0)):
         x, _, _ = _decode_block(cfg, x, dict(zip(names, weights)), kc, vc,

@@ -1,2 +1,2 @@
-"""Ops of the Llama train step: norms, rope, attention, cross entropy, and
-the CUDA kernels under ``ops.cuda``."""
+"""Ops of the Llama train step: norms, rope, attention, cross entropy, the
+MoE FFN, and the CUDA kernels under ``ops.cuda``."""

@@ -13,11 +13,15 @@ sampling stream is an explicit ``torch.Generator``. Steps run on executor
 threads under ``torch.inference_mode()``, entered inside each thread
 function (the mode is thread-local).
 
-Not in this slice: ``llm_app`` and the Serve deployment (ROADMAP item 8),
-``MultiplexedLoraService`` / ``lora_llm_app`` and LoRA params (items 2
-and 8), the disaggregated ``PrefillWorker`` / ``DecodeLlamaService`` /
-``disagg_llm_app`` over device channels (items 6 and 8), and tensor
-parallelism (item 9).
+Params may carry a ``"lora"`` adapter subtree: ``decode_step`` applies the
+low-rank path in every prefill and decode step. ``MultiplexedLoraService``
+keeps one engine per adapter id behind the multiplex LRU, all over one set of
+base weight tensors.
+
+Not in this slice: ``llm_app``, ``lora_llm_app`` and the Serve deployment
+(ROADMAP item 8), the disaggregated ``PrefillWorker`` /
+``DecodeLlamaService`` / ``disagg_llm_app`` over device channels (items 6
+and 8), and tensor parallelism (item 9).
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ import torch
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.models import lora as lora_mod
+from ray_tpu_torch.models.convert import check_params, params_from_numpy
 from ray_tpu_torch.serve.handle import prefix_block_tokens
+from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
 from ray_tpu_torch.serve.request_context import current_request_obs
 
 
@@ -87,6 +93,8 @@ class _PendingPrefill:
 
 
 def _to_device(tree, device: torch.device):
+    """The same tree on `device`; a tensor already there is the same tensor
+    (no copy), so engines built over one base share its storage."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
@@ -105,7 +113,9 @@ class LLMEngine:
     ``device=None`` means the CUDA card (raises without one); pass
     ``device="cpu"`` to run on the CPU on purpose. ``params`` may be the
     JAX package's tree as numpy arrays (carried over with
-    ``params_from_numpy``) or the port's dict of tensors.
+    ``params_from_numpy``) or the port's dict of tensors, either one with a
+    ``"lora"`` adapter subtree; both are checked against the preset's
+    config. The engine never writes its params.
     """
 
     def __init__(self, preset: str = "debug", *, tp: int | None = None,
@@ -136,10 +146,8 @@ class LLMEngine:
         self.eos_token_id = eos_token_id
         if params is None:
             params = llama.init_params(cfg, seed=seed, device=self.device)
-        elif "lora" in params:
-            raise NotImplementedError(
-                "LoRA adapters are not ported yet (ROADMAP item 2)")
         elif isinstance(params["embed"], torch.Tensor):
+            check_params(params, cfg)
             params = _to_device(params, self.device)
         else:
             params = params_from_numpy(params, device=self.device, cfg=cfg)
@@ -754,3 +762,65 @@ class LlamaService:
 
     def stats(self) -> dict:
         return self.engine.stats()
+
+
+class MultiplexedLoraService:
+    """Multi-LoRA serving: one base model, many adapters time-sharing one
+    replica through the multiplex LRU (a plain class here: the Serve
+    deployment and ``lora_llm_app`` arrive with ROADMAP item 8).
+
+    Each adapter id owns an ``LLMEngine`` whose params are
+    ``{**base, "lora": adapter}``: the decode steps apply the low-rank path,
+    and every engine holds the same base weight tensors (the same storage;
+    no engine writes them), so a resident adapter costs its A/B matrices
+    and a KV cache. The empty id serves the bare base model.
+
+    ``_load_adapter`` seeds adapters from the adapter id, as the reference
+    does: the stand-in for fetching trained A/B from storage (B = 0, so a
+    seeded adapter starts as a no-op); override it to load real ones.
+
+    Request payload: {"tokens": [...] or a string, "max_new_tokens": int,
+    "temperature": float}, with the adapter chosen by the multiplexed model
+    id of the request's context; streams {"token": id, "adapter": model_id}.
+    """
+
+    def __init__(self, preset: str = "debug", *,
+                 max_adapters_per_replica: int = 2, lora_rank: int = 4,
+                 seed: int = 0, device: str | torch.device | None = None,
+                 **engine_kw):
+        self.preset = preset
+        self.device = resolve_device(device)
+        self.engine_kw = dict(engine_kw)
+        self.lora_rank = int(lora_rank)
+        self.cfg = llama.config_for(preset)
+        self._base = llama.init_params(self.cfg, seed=seed,
+                                       device=self.device)
+        # instance override consumed by the @multiplexed LRU
+        self._rayt_mux_max_models = int(max_adapters_per_replica)
+
+    def _load_adapter(self, model_id: str) -> dict:
+        seed = int.from_bytes(model_id.encode()[:4].ljust(4, b"\0"), "big")
+        return lora_mod.init_lora_params(
+            self.cfg, lora_mod.LoraConfig(rank=self.lora_rank,
+                                          alpha=self.cfg.lora_alpha),
+            seed=seed, device=self.device)
+
+    @multiplexed(max_num_models_per_replica=2)  # instance attr overrides
+    async def get_engine(self, model_id: str) -> LLMEngine:
+        params = dict(self._base)
+        if model_id:  # the empty id serves the bare base model
+            params["lora"] = self._load_adapter(model_id)
+        return LLMEngine(self.preset, params=params, device=self.device,
+                         **self.engine_kw)
+
+    async def __call__(self, payload: dict):
+        model_id = get_multiplexed_model_id()
+        engine = await self.get_engine(model_id)
+        tokens = payload["tokens"]
+        if isinstance(tokens, str):
+            tokens = [b % self.cfg.vocab_size for b in tokens.encode()]
+        async for tok in engine.generate(
+                tokens,
+                max_new_tokens=int(payload.get("max_new_tokens", 8)),
+                temperature=float(payload.get("temperature", 0.0))):
+            yield {"token": int(tok), "adapter": model_id}

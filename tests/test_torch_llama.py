@@ -126,13 +126,13 @@ def test_remat_policies_keep_grads(policy, save_attn):
 
 
 def test_unported_features_raise():
-    _, tcfg = _cfgs("ring")
-    with pytest.raises(NotImplementedError):
-        tllama.loss_fn(_torch_params(_cfgs("xla")[1]),
-                       _torch_batch(_batch_np()), tcfg)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(tllama.config_for("debug", moe_num_experts=4),
-                           device="cpu")
+    """Ring and Ulysses attention need the multi-GPU slice. (LoRA and MoE
+    are ported: tests/test_torch_lora.py, tests/test_torch_moe.py.)"""
+    for impl in ("ring", "ulysses"):
+        _, tcfg = _cfgs(impl)
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            tllama.loss_fn(_torch_params(_cfgs("xla")[1]),
+                           _torch_batch(_batch_np()), tcfg)
 
 
 @pytest.mark.parametrize("preset", sorted(jllama.PRESETS))

@@ -22,9 +22,11 @@ import torch
 from ray_tpu.models import llama as jllama
 from ray_tpu.serve import llm as jllm
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import lora as tlora
 from ray_tpu_torch.serve import llm as tllm
+from ray_tpu_torch.serve import multiplex
 from chip_smoke import collect as _collect
-from chip_smoke import serve_scenarios
+from chip_smoke import lora_numpy, nonzero_adapter, serve_scenarios
 
 SCENARIOS = serve_scenarios()
 
@@ -281,11 +283,10 @@ def test_a_new_event_loop_rebinds_the_engine():
 
 
 def test_unported_options_raise():
+    """Tensor-parallel serving needs the multi-GPU slice. (Adapter params
+    are ported: the LoRA tests below.)"""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tllm.LLMEngine("debug", tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tllm.LLMEngine("debug", device="cpu",
-                       params={**_params_np(), "lora": {"layers": {}}})
 
 
 def test_llama_service_takes_a_string_payload():
@@ -323,3 +324,139 @@ def test_free_slot_overrun_poisons_the_reference_not_the_port(f32):
     assert jy[1:] == [0] * 7                         # NaN logits -> token 0
     assert tfacts["equals_fresh"]
     assert ty != jy
+
+
+# ------------------------------------------------------ LoRA adapters
+def _lora_np(b_scale=0.05):
+    """An adapter on the four attention targets, as numpy (b_scale 0: a
+    fresh init's zero-B adapter)."""
+    return lora_numpy(tllama.config_for("debug"), 4, tlora.DEFAULT_TARGETS,
+                      seed=0, b_scale=b_scale)
+
+
+@pytest.mark.parametrize("name", ["one_request", "three_concurrent"])
+def test_engine_with_adapter_matches_jax(f32, name):
+    """Both engines over the same base and a nonzero adapter: greedy streams
+    equal token for token, and differ from the base model's."""
+    params = {**_params_np(), "lora": _lora_np()}
+    want, _ = _scenario(name, lambda **kw: jllm.LLMEngine(
+        "debug", tp=1, params=params, **kw))
+    got, _ = _scenario(name, lambda **kw: tllm.LLMEngine(
+        "debug", device="cpu", params=params, **kw))
+    assert got == want
+    base, _ = _scenario(name, _torch_engine)
+    assert got != base
+
+
+def test_zero_b_adapter_engine_equals_base_engine():
+    """A zero-B adapter (bf16, as served) leaves every stream of the
+    engine's scenarios as the base engine gives it."""
+    params = {**_params_np(), "lora": _lora_np(b_scale=0.0)}
+    for name in ("three_concurrent", "prefix_hit"):
+        got, _ = _scenario(name, lambda **kw: tllm.LLMEngine(
+            "debug", device="cpu", params=params, **kw))
+        want, _ = _scenario(name, _torch_engine)
+        assert got == want, name
+
+
+def test_engine_checks_tensor_params_like_numpy_ones():
+    tparams = tllm.LLMEngine("debug", device="cpu").params
+    eng = tllm.LLMEngine("debug", device="cpu", params=tparams)
+    assert eng.params["embed"] is tparams["embed"]        # no copy
+    bad = {**tparams, "lora": {"layers": {"wq_a": tparams["layers"]["wq"]}}}
+    with pytest.raises(ValueError):
+        tllm.LLMEngine("debug", device="cpu", params=bad)
+    with pytest.raises(ValueError):
+        tllm.LLMEngine("debug", device="cpu",
+                       params={**tparams, "final_norm": tparams["embed"]})
+
+
+class _Host:
+    def __init__(self, max_models=None):
+        self.loads = []
+        if max_models is not None:
+            self._rayt_mux_max_models = max_models
+
+    @multiplex.multiplexed(max_num_models_per_replica=2)
+    async def get_model(self, model_id: str):
+        self.loads.append(model_id)
+        return {"id": model_id}
+
+
+def test_multiplex_lru_hits_evicts_and_reports_residents():
+    host = _Host()
+
+    async def run(ids):
+        return [await host.get_model(i) for i in ids]
+    first = asyncio.run(run(["a", "b", "a"]))
+    assert host.loads == ["a", "b"]                     # "a" hit
+    assert first[0] is first[2]
+    assert multiplex.loaded_model_ids(host) == ["b", "a"]   # LRU order
+    asyncio.run(run(["c"]))                              # evicts "b"
+    assert multiplex.loaded_model_ids(host) == ["a", "c"]
+    assert sorted(multiplex.resident_model_ids(host)) == ["a", "c"]
+    asyncio.run(run(["b"]))                              # reload, evicts "a"
+    assert host.loads == ["a", "b", "c", "b"]
+    one = _Host(max_models=1)                            # instance override
+    asyncio.run(one.get_model("x"))
+    asyncio.run(one.get_model("y"))
+    assert multiplex.loaded_model_ids(one) == ["y"]
+    assert multiplex.get_multiplexed_model_id() == ""
+    token = multiplex._set_model_id("m7")
+    try:
+        assert multiplex.get_multiplexed_model_id() == "m7"
+    finally:
+        multiplex._reset_model_id(token)
+    assert multiplex.get_multiplexed_model_id() == ""
+
+
+def _serve(svc, model_id, tokens, n=6):
+    async def run():
+        token = multiplex._set_model_id(model_id)
+        try:
+            return [d async for d in svc({"tokens": tokens,
+                                          "max_new_tokens": n})]
+        finally:
+            multiplex._reset_model_id(token)
+    return asyncio.run(run())
+
+
+class _NonzeroAdapters(tllm.MultiplexedLoraService):
+    def _load_adapter(self, model_id):
+        return nonzero_adapter(self.cfg, self.lora_rank, seed=len(model_id),
+                               b_std=0.05, device="cpu")
+
+
+def test_multiplexed_lora_service_shares_the_base():
+    """Three adapter ids through an LRU of two engines: the LRU evicts, the
+    streams are adapter-tagged, the empty id serves the bare base model,
+    and every engine holds the service's base tensors (same storage), which
+    serving leaves bit-identical."""
+    svc = tllm.MultiplexedLoraService("debug", max_adapters_per_replica=2,
+                                      lora_rank=4, device="cpu", max_batch=2)
+    base_before = {k: v.clone() for k, v in svc._base["layers"].items()}
+    prompt = [5, 9, 11, 42, 7]
+    base_stream = _collect(tllm.LLMEngine("debug", device="cpu", max_batch=2,
+                                          params=svc._base),
+                           prompt, max_new_tokens=6)
+    streams = {i: _serve(svc, i, prompt) for i in ("a1", "b2", "a1", "c3")}
+    assert multiplex.loaded_model_ids(svc, "get_engine") == ["a1", "c3"]
+    assert multiplex.resident_model_ids(svc) == ["a1", "c3"]
+    for model_id, items in streams.items():
+        assert {d["adapter"] for d in items} == {model_id}
+        # seeded adapters start with B = 0: the base model's stream
+        assert [d["token"] for d in items] == base_stream
+    plain = _serve(svc, "", prompt)
+    assert [d["token"] for d in plain] == base_stream
+    engines = [asyncio.run(svc.get_engine(i)) for i in ("c3", "")]
+    assert "lora" in engines[0].params and "lora" not in engines[1].params
+    assert engines[0].params["lora"]["layers"]["wq_a"].shape == (2, 64, 4)
+    for eng in engines:
+        for key, t in svc._base["layers"].items():
+            assert (eng.params["layers"][key].untyped_storage().data_ptr()
+                    == t.untyped_storage().data_ptr()), key
+    for key, t in svc._base["layers"].items():
+        assert torch.equal(t, base_before[key]), key
+    # a trained (nonzero) adapter changes the stream
+    tuned = _NonzeroAdapters("debug", lora_rank=4, device="cpu", max_batch=2)
+    assert [d["token"] for d in _serve(tuned, "a1", prompt)] != base_stream

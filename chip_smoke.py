@@ -55,6 +55,17 @@ caught, so any failure exits non-zero):
    L2 1e-4, with the off-by-one control); MultiplexedLoraService over 3
    adapter ids with 2 resident, sharing the base's storage; the decode
    step's time with and without an adapter.
+11. runtime_cluster, runtime_serve_410m, runtime_device_objects,
+   runtime_train_410m: the port's runtime (rt.init() with no arguments,
+   which autodetects the GPU) runs the 410m engine in an async actor
+   leased one GPU (f32 streams equal an in-process engine's; bf16
+   TTFT/TPOT/tokens/s through the actor and in process, 16 requests at
+   once), holds a CUDA tensor as a device object of that actor (same
+   object in the holder, equal in the driver, tensor_transport returns),
+   and runs the 410m train step in a task leased the GPU once the actor
+   is gone (48/24/24 launches a step in the worker; losses against
+   train_410m's). The cluster is shut down on the
+   way out, with every process it started.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -73,6 +84,11 @@ process each, and prints one {"phase": "compare", ...} line per run.
 runs the 410m engine's load window at each rate (requests/s) with that
 many requests, to find the rate it sustains; the serve_410m line holds the
 last rate's window and the others under "sweep".
+
+    python3 chip_smoke.py --runtime
+
+runs device, build, train_410m (for its losses) and the runtime phases
+alone.
 """
 
 from __future__ import annotations
@@ -568,12 +584,24 @@ def config_410m(**overrides):
                             **overrides)
 
 
-def run_410m_steps(cfg, params: dict, steps: int,
-                   trainable_keys=None) -> dict:
+def batch_410m(vocab: int) -> dict:
+    """The 410m train phases' batch: random tokens from a seed, on the
+    card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, vocab, (BATCH_410M, SEQ_410M), generator=gen,
+                           device="cuda")
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+
+def run_410m_steps(cfg, params: dict, steps: int, trainable_keys=None,
+                   batch: dict | None = None) -> dict:
     """build_train_step over `params` (consumed: the step holds its own
-    copy), 2 warm-up steps, then `steps` timed steps on one random batch
-    from a seed, with the launch counters and the peak memory read over the
-    timed steps only. Returns the readings and the step, state and batch."""
+    copy), 2 warm-up steps, then `steps` timed steps on one batch
+    (`batch_410m` unless given), with the launch counters and the peak
+    memory read over the timed steps only. Returns the readings and the
+    step, state and batch."""
     import gc
 
     import torch
@@ -587,10 +615,8 @@ def run_410m_steps(cfg, params: dict, steps: int,
         trainable_keys=trainable_keys)
     params.clear()
     gc.collect()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH_410M, SEQ_410M),
-                           generator=gen, device="cuda")
-    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    if batch is None:
+        batch = batch_410m(cfg.vocab_size)
     losses, moe_aux = [], []
     for _ in range(2):                                   # warm-up
         state, aux = step(state, batch)
@@ -642,7 +668,8 @@ def phase_train_410m(device_name: str, steps: int) -> dict:
          expected_launches=run["expected_launches"], steps=steps,
          batch=BATCH_410M, seq=SEQ_410M, n_layers=cfg.n_layers)
     _check_410m_run("410m", run)
-    return {"launches": run["launches"], "step_ms": run["step_ms"],
+    return {"launches": run["launches"], "losses": run["losses"],
+            "step_ms": run["step_ms"],
             "tokens_per_s": run["tokens_per_s"], "mfu": mfu,
             "peak_mem_gb": run["peak_mem_gb"],
             **profile_step(run["step"], run["state"], run["batch"])}
@@ -1229,6 +1256,17 @@ def serve_load(eng, cfg, n: int, rate: float, seed: int = 0) -> dict:
            ("prefills", "prefill_chunks", "batches", "generated_tokens")}}
 
 
+# the 410m engine as the serve phases run it
+ENGINE_410M = dict(max_batch=8, prompt_buckets=(128, 512, 1024),
+                   prefill_chunk=256)
+
+
+def warm_up(eng) -> None:
+    """Every bucket's prefill, chunked and not, and decode steps."""
+    for i, m in enumerate((100, 400, 1000)):
+        collect(eng, [1 + i] * m, max_new_tokens=4)
+
+
 SERVE_REQUESTS = 200
 # requests/s: four fifths of the ~2/s the engine sustains at the 410m
 # preset on an H100 (--serve-sweep 1,1.5,2,3 60), where the tails are judged
@@ -1251,11 +1289,8 @@ def serve_engine_run(cfg, params, device: str = "cuda",
     from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    eng = LLMEngine("410m", max_batch=8, prompt_buckets=(128, 512, 1024),
-                    prefill_chunk=256, params=params, device=device)
-    # warm-up: every bucket's prefill, chunked and not, and decode steps
-    for i, m in enumerate((100, 400, 1000)):
-        collect(eng, [1 + i] * m, max_new_tokens=4)
+    eng = LLMEngine("410m", params=params, device=device, **ENGINE_410M)
+    warm_up(eng)
     serve_late_join(eng, cfg)
     reset_launches()
     loads = []
@@ -1694,6 +1729,380 @@ def phase_lora_serve_410m(device: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ the runtime
+RUNTIME_PARITY_PROMPTS = (40, 300, 700)   # prompt tokens, one at a time
+RUNTIME_NEW_TOKENS = 16
+RUNTIME_CONCURRENT = 16                   # bf16 requests sent at once
+RUNTIME_TRAIN_STEPS = 3                   # timed, after 2 warm-up steps
+
+
+def phase_runtime_cluster() -> dict:
+    """rt.init() with no arguments on the card's host: the GPU resource
+    equals the cards nvidia-smi lists, the head node's label names the
+    part, a CPU task's worker has not imported torch; the init time and a
+    no-op task's round trip."""
+    import ray_tpu_torch as rt
+
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split("\n")
+    names = [n.strip() for n in names if n.strip()]
+    t0 = time.perf_counter()
+    rt.init()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    resources = rt.cluster_resources()
+    labels = next(n.labels for n in rt.nodes() if n.labels.get("head"))
+
+    @rt.remote
+    def cpu_task():
+        import sys
+
+        return ("torch" in sys.modules,
+                sys.modules["__main__"].__spec__.name)
+
+    torch_in_worker, worker_main = rt.get(cpu_task.remote(), timeout=120)
+
+    @rt.remote
+    def noop():
+        return None
+
+    for _ in range(5):
+        rt.get(noop.remote(), timeout=60)
+    rtt = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        rt.get(noop.remote(), timeout=60)
+        rtt.append(time.perf_counter() - t0)
+    res = {"init_ms": init_ms, "noop_round_trip": _percentiles(rtt),
+           "resources_gpu": resources.get("GPU"), "nvidia_smi_cards": names,
+           "head_labels": labels, "torch_in_cpu_worker": torch_in_worker,
+           "worker_module": worker_main}
+    ok = (resources.get("GPU") == float(len(names)) and bool(names)
+          and labels.get("gpu-type") == names[0] and not torch_in_worker
+          and worker_main == "ray_tpu_torch.core.worker_main")
+    emit("runtime_cluster", **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"runtime_cluster failed its checks: {res}")
+    return res
+
+
+class LlamaHost:
+    """An async actor hosting the port's LlamaService("410m") on the card,
+    with the engine of the serve phases; streams token ids. With `f32` the
+    preset runs in float32 with TF32 off."""
+
+    def __init__(self, f32: bool):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("a GPU-leased actor sees no CUDA device")
+        from ray_tpu_torch.ops.cuda import _build
+        from ray_tpu_torch.serve import llm
+
+        _build.library()                 # the kernel library loads here
+        if f32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        with (f32_presets(llm.llama) if f32 else contextlib.nullcontext()):
+            self.svc = llm.LlamaService("410m", device="cuda", seed=0,
+                                        **ENGINE_410M)
+
+    def probe(self) -> dict:
+        import sys
+
+        import torch
+
+        return {"cuda": torch.cuda.is_available(),
+                "device": torch.cuda.get_device_name(0),
+                "dtype": str(self.svc.engine.cfg.dtype),
+                "python_S": sys.flags.no_site == 1}
+
+    def warm_up(self):
+        warm_up(self.svc.engine)
+
+    async def generate(self, payload: dict):
+        async for out in self.svc(payload):
+            yield out["token"]
+
+    def reset_launches(self):
+        from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+
+        reset_launches()
+
+    def launches(self) -> dict:
+        from ray_tpu_torch.ops.cuda.flash_attention import launches
+
+        return dict(launches)
+
+    def put_kv(self) -> list:
+        """Layer 0's K cache as a device object, returned inside a list so
+        the caller receives the ref itself."""
+        import ray_tpu_torch as rt
+
+        self.kv = self.svc.engine._decode_cache["k"][0]
+        self.kv_ref = rt.put_device(self.kv)
+        return [self.kv_ref]
+
+    def holder_gets_the_same_object(self) -> bool:
+        import ray_tpu_torch as rt
+
+        return rt.get(self.kv_ref) is self.kv
+
+    def kv_on_host(self):
+        return self.kv.cpu()
+
+    def kv_tensor(self):
+        return self.kv
+
+
+async def _stream_all(submit, requests: list) -> dict:
+    """Send every (prompt, new tokens) request at once through
+    `submit(prompt, new) -> async iterator of token ids`; stamp each token
+    where it arrives, in seconds from its request's submission."""
+    import asyncio
+
+    arrived = [[] for _ in requests]
+    streams = [[] for _ in requests]
+
+    async def one(i, prompt, new):
+        t_submit = time.perf_counter()
+        async for tok in submit(prompt, new):
+            arrived[i].append(time.perf_counter() - t_submit)
+            streams[i].append(tok)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[one(i, p, n) for i, (p, n) in enumerate(requests)])
+    return {"streams": streams, "arrived": arrived,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _latencies(run: dict) -> dict:
+    """TTFT and TPOT seen where the tokens arrived, and tokens/s."""
+    arrived = run["arrived"]
+    return {"wall_s": run["wall_s"],
+            "tokens_per_s": sum(len(a) for a in arrived) / run["wall_s"],
+            "ttft": _percentiles([a[0] for a in arrived]),
+            "tpot": _percentiles([(a[-1] - a[0]) / (len(a) - 1)
+                                  for a in arrived if len(a) > 1])}
+
+
+def _actor_submit(actor):
+    async def submit(prompt, new):
+        gen = actor.generate.options(num_returns="streaming").remote(
+            {"tokens": prompt, "max_new_tokens": new})
+        async for ref in gen:
+            yield await ref
+    return submit
+
+
+def _engine_submit(eng):
+    def submit(prompt, new):
+        return eng.generate(prompt, max_new_tokens=new)
+    return submit
+
+
+def _one_at_a_time(submit, requests: list) -> list:
+    import asyncio
+
+    async def run():
+        return [(await _stream_all(submit, [r]))["streams"][0]
+                for r in requests]
+    return asyncio.run(run())
+
+
+def phase_runtime_serve_410m():
+    """LlamaService("410m") in an async actor leased one GPU, streaming
+    through a num_returns="streaming" method. Parity in f32 (TF32 off,
+    greedy): 3 requests of 40, 300 and 700 prompt tokens and 16 new, one
+    after another, equal token for token to an in-process engine of the
+    same config and seed on the same card. Timing in bf16: 16 requests at
+    once through the actor and in process, TTFT and TPOT seen at the
+    driver and tokens/s. Returns the bf16 actor (it holds the device
+    object of runtime_device_objects)."""
+    import asyncio
+    import gc
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    from ray_tpu_torch.models import llama
+
+    host = rt.remote(num_gpus=1, max_restarts=0)(LlamaHost)
+    vocab = llama.config_for("410m").vocab_size
+    rng = np.random.default_rng(3)
+    parity_reqs = [(rng.integers(0, vocab, n).tolist(),
+                    RUNTIME_NEW_TOKENS) for n in RUNTIME_PARITY_PROMPTS]
+    # f32 parity: actor, then the same requests in process
+    actor = host.remote(True)
+    probe = rt.get(actor.probe.remote(), timeout=600)
+    rt.get(actor.reset_launches.remote(), timeout=60)
+    through_actor = _one_at_a_time(_actor_submit(actor), parity_reqs)
+    actor_launches = rt.get(actor.launches.remote(), timeout=60)
+    rt.kill(actor)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with f32_presets(llama):
+        eng = LLMEngine("410m", device="cuda", seed=0, **ENGINE_410M)
+        assert eng.cfg.dtype == torch.float32
+        in_process = _one_at_a_time(_engine_submit(eng), parity_reqs)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = (through_actor == in_process
+              and [len(s) for s in through_actor]
+              == [RUNTIME_NEW_TOKENS] * len(parity_reqs))
+    # bf16 timing: the same 16 requests at once, actor then in process
+    traffic = serve_traffic(vocab, RUNTIME_CONCURRENT, 1.0, seed=4)
+    requests = [(p, m) for _, p, m in traffic]
+    actor = host.remote(False)
+    bf16_probe = rt.get(actor.probe.remote(), timeout=600)
+    rt.get(actor.warm_up.remote(), timeout=600)
+    timed_actor = asyncio.run(_stream_all(_actor_submit(actor), requests))
+    eng = LLMEngine("410m", device="cuda", seed=0, **ENGINE_410M)
+    warm_up(eng)
+    timed_local = asyncio.run(_stream_all(_engine_submit(eng), requests))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    complete = all([len(s) for s in t["streams"]] == [m for _, m in requests]
+                   for t in (timed_actor, timed_local))
+    summary = {"actor": _latencies(timed_actor),
+               "in_process": _latencies(timed_local)}
+    res = {"f32_actor_probe": probe, "bf16_actor_probe": bf16_probe,
+           "parity_prompts": list(RUNTIME_PARITY_PROMPTS),
+           "new_tokens": RUNTIME_NEW_TOKENS,
+           "parity_streams_equal": parity,
+           "parity_streams_actor": through_actor,
+           "parity_streams_in_process": in_process,
+           # the engine's prefill and decode attend over the cache densely
+           # (models/llama._decode_block): no flash kernel on this path
+           "actor_flash_launches": actor_launches,
+           "concurrent_requests": RUNTIME_CONCURRENT,
+           "prompt_tokens": sum(len(p) for p, _ in requests),
+           "generated_tokens": sum(m for _, m in requests),
+           "complete": complete, **summary}
+    ok = (parity and complete and probe["cuda"] and probe["python_S"]
+          and probe["dtype"] == "torch.float32"
+          and bf16_probe["dtype"] == "torch.bfloat16")
+    emit("runtime_serve_410m", **res, ok=ok)
+    if not ok:
+        rt.kill(actor)
+        raise AssertionError("runtime_serve_410m failed its checks")
+    return actor
+
+
+def train_410m_task(batch: dict, steps: int) -> dict:
+    """The 410m train step in a GPU-leased worker: params from seed 0, the
+    batch as numpy (rt.put by the driver)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("a GPU-leased task sees no CUDA device")
+    from ray_tpu_torch.models import llama
+
+    cfg = config_410m()
+    run = run_410m_steps(
+        cfg, llama.init_params(cfg, seed=0), steps,
+        batch={k: torch.tensor(v, device="cuda") for k, v in batch.items()})
+    return {k: run[k] for k in ("losses", "step_ms", "tokens_per_s",
+                                "peak_mem_gb", "launches",
+                                "expected_launches")}
+
+
+def phase_runtime_train_410m(reference_losses: list) -> dict:
+    """train_410m_task leased one GPU: 2 warm-up and 3 timed steps, the
+    batch through rt.put as numpy. The worker's launch counters show
+    48/24/24 flash launches a step; its first loss (forward only, before
+    any update) equals train_410m's on the same seed and batch to 1e-6
+    relative, and the later ones agree to 1e-3 (the embedding backward
+    accumulates with atomics)."""
+    import ray_tpu_torch as rt
+
+    batch = {k: v.cpu().numpy()
+             for k, v in batch_410m(config_410m().vocab_size).items()}
+    ref = rt.put(batch)
+    task = rt.remote(num_gpus=1, max_retries=0)(train_410m_task)
+    t0 = time.perf_counter()
+    run = rt.get(task.remote(ref, RUNTIME_TRAIN_STEPS), timeout=900)
+    wall_s = time.perf_counter() - t0
+    losses = run["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, reference_losses)]
+    ok = (run["launches"] == run["expected_launches"]
+          and rel[0] <= 1e-6 and max(rel) <= 1e-3
+          and len(rel) == len(losses))
+    emit("runtime_train_410m", **run, reference_losses=reference_losses,
+         rel_diff=rel, tolerance_first=1e-6, tolerance_later=1e-3,
+         task_wall_s=wall_s, steps=RUNTIME_TRAIN_STEPS, ok=ok)
+    if not ok:
+        raise AssertionError("runtime_train_410m failed its checks")
+    return run
+
+
+def phase_runtime_device_objects(actor) -> dict:
+    """In the GPU actor, rt.put_device of layer 0's K cache ([8, 2048, 16,
+    64] bf16, 33.5 MB): rt.get in the holder is the same object; rt.get in
+    the driver gives a CUDA tensor equal to it (host-staged fetch, timed
+    over 5 gets); a tensor_transport=True return arrives the same way."""
+    import ray_tpu_torch as rt
+    import torch
+
+    [ref] = rt.get(actor.put_kv.remote(), timeout=60)
+    same = rt.get(actor.holder_gets_the_same_object.remote(), timeout=60)
+    want = rt.get(actor.kv_on_host.remote(), timeout=120).to("cuda")
+    fetch_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = rt.get(ref, timeout=120)
+        torch.cuda.synchronize()
+        fetch_s.append(time.perf_counter() - t0)
+    equal = (got.is_cuda and got.dtype == torch.bfloat16
+             and tuple(got.shape) == (8, 2048, 16, 64)
+             and torch.equal(got, want))
+    returned = rt.get(actor.kv_tensor.options(tensor_transport=True).remote(),
+                      timeout=120)
+    equal_transport = returned.is_cuda and torch.equal(returned, want)
+    nbytes = want.numel() * want.element_size()
+    res = {"shape": list(want.shape), "dtype": str(want.dtype),
+           "mbytes": nbytes / 1e6, "holder_same_object": same,
+           "driver_get_equal": equal, "tensor_transport_equal":
+           equal_transport, "fetch_ms": _percentiles(fetch_s),
+           "fetch_mb_per_s": nbytes / 1e6 / statistics.median(fetch_s),
+           "nonzero": bool(want.abs().sum() > 0)}
+    ok = same and equal and equal_transport and res["nonzero"]
+    emit("runtime_device_objects", **res, ok=ok)
+    if not ok:
+        raise AssertionError("runtime_device_objects failed its checks")
+    return res
+
+
+def phase_runtime(reference_losses: list) -> dict:
+    """The four runtime phases on one cluster, shut down on the way out
+    (its head and every worker stop with it). Returns the train task's
+    launch counts."""
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()       # the card's memory for the workers
+    try:
+        phase_runtime_cluster()
+        actor = phase_runtime_serve_410m()
+        phase_runtime_device_objects(actor)
+        # the actor holds the node's one GPU until it dies: the train task
+        # is leased that GPU next
+        rt.kill(actor)
+        train = phase_runtime_train_410m(reference_losses)
+    finally:
+        rt.shutdown()
+    return train["launches"]
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1710,6 +2119,11 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--compare"] and len(argv) == 2:
         phase_device()
         compare(argv[1])
+        return 0
+    if argv == ["--runtime"]:
+        info = phase_device()
+        phase_build()
+        phase_runtime(phase_train_410m(info["name"], STEPS_410M)["losses"])
         return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama
@@ -1737,6 +2151,7 @@ def main(argv: list[str]) -> int:
                  info["name"], STEPS_410M, full)["launches"],
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()
+    paths["runtime_train_410m"] = phase_runtime(full["losses"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

@@ -1,6 +1,16 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for an NVIDIA H100.
 
-Ported so far: ops (rms_norm, rope, attention, cross entropy), the
+The runtime (tasks, actors, objects, the GCS and node managers; ``core``,
+``_internal``, ``_native``, ``util``, ``api``) is carried over from the JAX
+package with the GPU as a schedulable resource::
+
+    import ray_tpu_torch as rt
+    rt.init()                      # autodetects the node's GPUs
+    @rt.remote(num_gpus=1)
+    def f(x): ...
+    rt.get(f.remote(2))
+
+Compute, on one card: ops (rms_norm, rope, attention, cross entropy), the
 flash-attention kernels written in CUDA C++ for sm_90a (``ops/cuda``), the
 Llama model with its KV-cache decode, LoRA adapters and the MoE FFN
 (``models/llama``, ``models/lora``, ``ops/moe``), the MLP (``models/mlp``),
@@ -8,10 +18,53 @@ weight conversion from the JAX package's parameter tree
 (``models/convert``), a single-device train step with AdamW and frozen keys
 (``parallel/spmd``), and the continuously batched LLM engine with adapter
 serving behind the multiplex LRU (``serve/llm``, ``serve/multiplex``).
-Entry points run on the CUDA card unless given ``device="cpu"``. The
-package never imports jax.
+Compute entry points run on the CUDA card unless given ``device="cpu"``.
+
+The package never imports jax. Its root, ``core``, ``_internal`` and
+``util`` never import torch either: workers boot with ``python -S`` in about
+100 ms and pay torch's import only when a task uses it, so
+``resolve_device`` is a lazy attribute.
 """
 
-from ray_tpu_torch.device import resolve_device
+__version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+from ray_tpu_torch.api import (ActorClass, ActorHandle,  # noqa: F401
+                               PlacementGroup, available_resources, cancel,
+                               cluster_resources, drain_node, drain_status,
+                               get, get_actor, get_runtime_context, kill,
+                               nodes, place_gang, placement_group, put,
+                               put_device, remote, remove_placement_group,
+                               set_job_quota, wait)
+from ray_tpu_torch.core.common import (ActorDiedError,  # noqa: F401
+                                       GetTimeoutError,
+                                       NodeAffinitySchedulingStrategy,
+                                       NodeLabelSchedulingStrategy,
+                                       ObjectLostError,
+                                       PlacementGroupSchedulingStrategy,
+                                       RayTpuError, TaskCancelledError,
+                                       TaskError, WorkerCrashedError)
+from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: F401
+from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
+                                        shutdown)
+
+# subpackages of the reference that the port does not hold yet, by the
+# ROADMAP.md item that brings them
+_NOT_PORTED = {"dag": "3", "collective": "3", "train": "4", "rl": "7",
+               "data": "8", "tune": "8", "state_api": "2b"}
+
+
+def __getattr__(name):
+    # Lazy submodules: keep `import ray_tpu_torch` free of torch.
+    if name == "resolve_device":
+        from ray_tpu_torch.device import resolve_device
+
+        return resolve_device
+    if name in ("util", "serve", "models", "ops", "parallel", "experimental"):
+        import importlib
+
+        return importlib.import_module(f"ray_tpu_torch.{name}")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"ray_tpu_torch.{name} is not ported yet (ROADMAP.md item "
+            f"{_NOT_PORTED[name]})")
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,93 @@
+"""Head process: GCS + the head node's manager in one asyncio process
+(ref analog: `ray start --head` spawning gcs_server + raylet; merged here
+because both are asyncio services and separate daemons buy nothing on a
+single host — multi-node tests spawn extra node managers via
+cluster_utils).
+
+Prints one JSON line with the bound ports on stdout, then serves forever.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+
+# head services of the reference that the port does not hold yet, by the
+# ROADMAP.md item that brings them
+_NOT_PORTED = {"dashboard": "2b", "autoscaler": "8"}
+
+
+def not_ported(service: str):
+    raise NotImplementedError(
+        f"the {service} is not ported to ray_tpu_torch yet (ROADMAP.md item "
+        f"{_NOT_PORTED[service]})")
+
+
+async def run(args):
+    if args.dashboard_port >= 0:
+        not_ported("dashboard")
+    if args.autoscaler_config:
+        not_ported("autoscaler")
+    from ray_tpu_torch._internal.ids import NodeID
+    from ray_tpu_torch.core.common import Address
+    from ray_tpu_torch.core.gcs import GcsServer
+    from ray_tpu_torch.core.node_manager import NodeManager
+
+    gcs = GcsServer(persist_path=args.persist_path or None)
+    gcs_port = await gcs.start(port=args.gcs_port)
+    dashboard_port = -1
+    nm = None
+    if args.gcs_only:
+        print(json.dumps({"gcs_port": gcs_port, "nm_port": -1,
+                          "node_id": None,
+                          "dashboard_port": dashboard_port}), flush=True)
+    else:
+        resources = json.loads(args.resources)
+        nm = NodeManager(
+            node_id=NodeID.random(), resources=resources,
+            gcs_address=Address("127.0.0.1", gcs_port),
+            labels={**json.loads(args.labels), "head": "1"})
+        addr = await nm.start()
+        print(json.dumps({"gcs_port": gcs_port, "nm_port": addr.port,
+                          "node_id": nm.node_id.hex(),
+                          "dashboard_port": dashboard_port}), flush=True)
+    # SIGTERM must run the shutdown path (terminate pool workers) — the
+    # default handler would kill this process and orphan every worker.
+    import signal
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:
+            pass
+    try:
+        await stop.wait()
+    finally:
+        if nm is not None:
+            await nm.stop()
+        await gcs.stop()
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--gcs-port", type=int, default=0)
+    p.add_argument("--resources", type=str, default="{}")
+    p.add_argument("--labels", type=str, default="{}")
+    p.add_argument("--persist-path", type=str, default="")
+    p.add_argument("--gcs-only", action="store_true")
+    p.add_argument("--autoscaler-config", type=str, default="")
+    # -1 = disabled, 0 = ephemeral port, >0 = fixed port
+    p.add_argument("--dashboard-port", type=int, default=-1)
+    args = p.parse_args()
+    try:
+        asyncio.run(run(args))
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Train-step builder, single device (counterpart of
-ray_tpu/parallel/spmd.py; the mesh and sharding arguments wait for the
-multi-GPU slice).
+ray_tpu/parallel/spmd.py, with its positional order; the mesh and sharding
+arguments wait for the multi-GPU slice).
 
 Usage:
     step, state = build_train_step(loss_fn, adamw(3e-4), params)
@@ -13,7 +13,7 @@ its dtype across steps.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -34,12 +34,16 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
     return [tree]
 
 
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -52,10 +56,12 @@ def _split_batch(batch: dict, n: int) -> list[dict]:
 
 
 def build_train_step(loss_fn: Callable, optimizer: Callable, params: dict,
-                     device: str | torch.device | None = None,
-                     grad_accum: int = 1,
-                     trainable_keys: tuple | None = None):
-    """Returns (step, state).
+                     logical_axes: Any = None, mesh: Any = None,
+                     rules: dict | None = None,
+                     seq_sharded_batch: bool = False, grad_accum: int = 1,
+                     trainable_keys: tuple | None = None, *,
+                     device: str | torch.device | None = None):
+    """Returns (step, state). The positional order is the reference's.
 
     loss_fn(params, batch) -> (loss, aux_dict). state = {params, opt_state,
     step}, plus ``frozen`` when ``trainable_keys`` names the top-level keys
@@ -63,7 +69,17 @@ def build_train_step(loss_fn: Callable, optimizer: Callable, params: dict,
     ``optimizer`` is a factory such as ``adamw(3e-4)``. With
     ``grad_accum > 1`` the batch is cut into that many micro-batches along
     dim 0 and their gradients averaged.
+
+    On one device ``logical_axes`` and ``rules`` are accepted and have no
+    effect; a ``mesh`` or ``seq_sharded_batch=True`` needs the multi-GPU
+    slice (ROADMAP.md item 6) and raises. ``device=None`` means the CUDA
+    card.
     """
+    if mesh is not None or seq_sharded_batch:
+        raise NotImplementedError(
+            "build_train_step over a mesh or with a sequence-sharded batch "
+            "needs the multi-GPU slice (ROADMAP.md item 6); this port runs "
+            "one device")
     dev = resolve_device(device)
     params = _map(lambda t: t.detach().to(dev).clone(), params)
     frozen = {}
@@ -82,7 +98,8 @@ def build_train_step(loss_fn: Callable, optimizer: Callable, params: dict,
 
     def step(state: dict, batch: dict):
         batch = {k: v.to(dev) for k, v in batch.items()}
-        full = {**state.get("frozen", {}), **state["params"]}
+        full = ({**state["frozen"], **state["params"]} if "frozen" in state
+                else state["params"])
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
         aux_sum = None

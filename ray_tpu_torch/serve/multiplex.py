@@ -44,9 +44,16 @@ def _reset_model_id(token):
 
 
 def _mux_metric(counter_name: str, loader: str):
-    """Load/eviction telemetry hook. The reference counts these in
-    ``util.builtin_metrics``, which arrives with the ``util/`` carry-over
-    (ROADMAP item 5); until then this records nothing."""
+    """Best-effort load/eviction telemetry — cache-thrash visibility for
+    the LoRA-affinity story (an affinity-routed fleet shows loads ~=
+    distinct adapters; load/eviction churn at steady state means hot
+    adapters are bouncing between replicas)."""
+    try:
+        from ray_tpu_torch.util import builtin_metrics as bm
+
+        getattr(bm, counter_name).inc(tags={"loader": loader})
+    except Exception:
+        pass
 
 
 def multiplexed(max_num_models_per_replica: int = 3) -> Callable:

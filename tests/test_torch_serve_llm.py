@@ -410,6 +410,22 @@ def test_multiplex_lru_hits_evicts_and_reports_residents():
     assert multiplex.get_multiplexed_model_id() == ""
 
 
+def test_mux_counters_count_loads_and_evictions():
+    """The serve_mux_loads / serve_mux_evictions counters of
+    util.builtin_metrics (wired as the reference wires them) count the
+    loads and evictions of the LRU test above: "a", "b", "c", "b" loaded
+    and "b", "a" evicted by the first host; "x", "y" loaded and "x"
+    evicted by the second."""
+    from ray_tpu_torch.util import builtin_metrics as bm
+
+    tags = {"loader": "get_model"}
+    loads, evictions = (bm.serve_mux_loads.get(tags),
+                        bm.serve_mux_evictions.get(tags))
+    test_multiplex_lru_hits_evicts_and_reports_residents()
+    assert bm.serve_mux_loads.get(tags) - loads == 6
+    assert bm.serve_mux_evictions.get(tags) - evictions == 3
+
+
 def _serve(svc, model_id, tokens, n=6):
     async def run():
         token = multiplex._set_model_id(model_id)

@@ -146,3 +146,42 @@ def test_eval_step_matches_train_loss():
     aux = evaluate(tp, _torch_batch(batch))
     _, losses = _port_run(tcfg, params, batch, 1)
     np.testing.assert_allclose(float(aux["loss"]), losses[0], rtol=1e-6)
+
+
+def test_positional_order_is_the_references():
+    """Called positionally as tests/test_train.py:66 calls the reference,
+    (loss_fn, optimizer, params, logical_axes, mesh, ...), on the MLP with
+    its list of layers: the logical axes are taken and ignored on one
+    device, and the trajectory matches the reference's on a 1-device mesh
+    at 1e-5 relative. A mesh or a sequence-sharded batch raises."""
+    from ray_tpu.models import mlp as jmlp
+    from ray_tpu_torch.models import mlp as tmlp
+
+    cfg = dict(in_dim=16, hidden=(32,), n_classes=4)
+    jparams = jmlp.mlp_init(jmlp.MLPConfig(**cfg), jax.random.PRNGKey(0))
+    axes = [{"w": (None, None), "b": (None,)} for _ in jparams]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 16)).astype(np.float32)
+    y = ((x.sum(-1) > 0).astype(np.int32) % 4)
+    mesh = build_mesh({"data": 1}, jax.devices()[:1])
+    jstep, jstate = jax_build_train_step(jmlp.mlp_loss, optax.adamw(1e-2),
+                                         jparams, axes, mesh)
+    tparams = [params_from_numpy(jax.tree.map(np.asarray, layer),
+                                 device="cpu") for layer in jparams]
+    step, state = build_train_step(tmlp.mlp_loss, adamw(1e-2), tparams,
+                                   axes, None, None, False, 1, None,
+                                   device="cpu")
+    jbatch = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
+    batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()}
+    jlosses, losses = [], []
+    for _ in range(3):
+        jstate, jaux = jstep(jstate, jbatch)
+        state, aux = step(state, batch)
+        jlosses.append(float(jaux["loss"]))
+        losses.append(float(aux["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        build_train_step(tmlp.mlp_loss, adamw(1e-2), tparams, axes, mesh)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        build_train_step(tmlp.mlp_loss, adamw(1e-2), tparams, axes, None,
+                         None, True, device="cpu")

@@ -56,16 +56,22 @@ caught, so any failure exits non-zero):
    adapter ids with 2 resident, sharing the base's storage; the decode
    step's time with and without an adapter.
 11. runtime_cluster, runtime_serve_410m, runtime_device_objects,
-   runtime_train_410m: the port's runtime (rt.init() with no arguments,
-   which autodetects the GPU) runs the 410m engine in an async actor
-   leased one GPU (f32 streams equal an in-process engine's; bf16
-   TTFT/TPOT/tokens/s through the actor and in process, 16 requests at
-   once), holds a CUDA tensor as a device object of that actor (same
-   object in the holder, equal in the driver, tensor_transport returns),
-   and runs the 410m train step in a task leased the GPU once the actor
-   is gone (48/24/24 launches a step in the worker; losses against
-   train_410m's). The cluster is shut down on the
-   way out, with every process it started.
+   serve_app_410m, runtime_train_410m: the port's runtime (rt.init() with
+   no arguments, which autodetects the GPU) runs the 410m engine in an
+   async actor leased one GPU (f32 streams equal an in-process engine's;
+   bf16 TTFT/TPOT/tokens/s through the actor and in process, 16 requests
+   at once), holds a CUDA tensor as a device object of that actor (same
+   object in the holder, equal in the driver, tensor_transport returns);
+   then the Serve plane (serve.start, serve.run) serves the 410m engine:
+   f32 over HTTP SSE from a replica leased the GPU (streams equal the
+   in-process ones; GPU 0 while it lives, 1 after serve.delete), bf16
+   llm_app with the same 16 requests over HTTP SSE and through the
+   DeploymentHandle, and lora_llm_app routing rank-16 adapters by
+   multiplexed model id (tags, zero-B streams equal the base's, the LRU's
+   residents); last, the 410m train step in a task leased the GPU once
+   the replicas are gone (48/24/24 launches a step in the worker; losses
+   against train_410m's). The cluster is shut down on the way out, with
+   every process it started.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -88,7 +94,7 @@ last rate's window and the others under "sweep".
     python3 chip_smoke.py --runtime
 
 runs device, build, train_410m (for its losses) and the runtime phases
-alone.
+(serve_app_410m among them) alone.
 """
 
 from __future__ import annotations
@@ -184,13 +190,18 @@ def time_single_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def phase_device() -> dict:
-    import torch
-
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    import torch
+
+    smi = card_line()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
@@ -1901,6 +1912,23 @@ def _engine_submit(eng):
     return submit
 
 
+def parity_requests(vocab: int) -> list:
+    """The f32 parity requests of the runtime and Serve phases: prompts of
+    RUNTIME_PARITY_PROMPTS tokens, RUNTIME_NEW_TOKENS new each."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, vocab, n).tolist(), RUNTIME_NEW_TOKENS)
+            for n in RUNTIME_PARITY_PROMPTS]
+
+
+def concurrent_requests(vocab: int) -> list:
+    """The bf16 timing requests of the runtime and Serve phases, sent at
+    once: RUNTIME_CONCURRENT (prompt, new tokens) pairs of serve_traffic."""
+    return [(p, m) for _, p, m in
+            serve_traffic(vocab, RUNTIME_CONCURRENT, 1.0, seed=4)]
+
+
 def _one_at_a_time(submit, requests: list) -> list:
     import asyncio
 
@@ -1918,11 +1946,10 @@ def phase_runtime_serve_410m():
     same config and seed on the same card. Timing in bf16: 16 requests at
     once through the actor and in process, TTFT and TPOT seen at the
     driver and tokens/s. Returns the bf16 actor (it holds the device
-    object of runtime_device_objects)."""
+    object of runtime_device_objects) and the phase's readings."""
     import asyncio
     import gc
 
-    import numpy as np
     import torch
 
     import ray_tpu_torch as rt
@@ -1932,9 +1959,7 @@ def phase_runtime_serve_410m():
 
     host = rt.remote(num_gpus=1, max_restarts=0)(LlamaHost)
     vocab = llama.config_for("410m").vocab_size
-    rng = np.random.default_rng(3)
-    parity_reqs = [(rng.integers(0, vocab, n).tolist(),
-                    RUNTIME_NEW_TOKENS) for n in RUNTIME_PARITY_PROMPTS]
+    parity_reqs = parity_requests(vocab)
     # f32 parity: actor, then the same requests in process
     actor = host.remote(True)
     probe = rt.get(actor.probe.remote(), timeout=600)
@@ -1955,8 +1980,7 @@ def phase_runtime_serve_410m():
               and [len(s) for s in through_actor]
               == [RUNTIME_NEW_TOKENS] * len(parity_reqs))
     # bf16 timing: the same 16 requests at once, actor then in process
-    traffic = serve_traffic(vocab, RUNTIME_CONCURRENT, 1.0, seed=4)
-    requests = [(p, m) for _, p, m in traffic]
+    requests = concurrent_requests(vocab)
     actor = host.remote(False)
     bf16_probe = rt.get(actor.probe.remote(), timeout=600)
     rt.get(actor.warm_up.remote(), timeout=600)
@@ -1991,7 +2015,7 @@ def phase_runtime_serve_410m():
     if not ok:
         rt.kill(actor)
         raise AssertionError("runtime_serve_410m failed its checks")
-    return actor
+    return actor, res
 
 
 def train_410m_task(batch: dict, steps: int) -> dict:
@@ -2078,10 +2102,295 @@ def phase_runtime_device_objects(actor) -> dict:
     return res
 
 
+def served(cls, f32: bool = False):
+    """`cls` (LlamaService or MultiplexedLoraService) as a Serve replica
+    hosts it, with three methods more to read the replica's process:
+    probe (cuda, device, engine dtype, pid) and the flash launch counters.
+    With `f32` its constructor builds the engine in float32 with TF32 off;
+    the wrap runs where the constructor runs, in the replica's own process
+    (engines built later, as the LoRA service builds its adapters', are
+    not covered)."""
+    class Served(cls):
+        def __init__(self, *args, **kwargs):
+            import torch
+
+            from ray_tpu_torch.serve import llm
+
+            if f32:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+            with (f32_presets(llm.llama) if f32
+                  else contextlib.nullcontext()):
+                super().__init__(*args, **kwargs)
+
+        def probe(self) -> dict:
+            import torch
+
+            cfg = self.engine.cfg if hasattr(self, "engine") else self.cfg
+            cuda = torch.cuda.is_available()
+            return {"cuda": cuda, "pid": os.getpid(), "dtype": str(cfg.dtype),
+                    "device": torch.cuda.get_device_name(0) if cuda
+                    else "cpu"}
+
+        def reset_launches(self):
+            from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+
+            reset_launches()
+
+        def launches(self) -> dict:
+            from ray_tpu_torch.ops.cuda.flash_attention import launches
+
+            return dict(launches)
+
+    Served.__name__ = cls.__name__
+    return Served
+
+
+def sse_events(port: int, app: str, payload: dict, model_id: str = ""):
+    """POST `payload` to the Serve HTTP proxy on `port` asking for
+    server-sent events (Accept: text/event-stream), with `model_id` in the
+    multiplexing header; yields each event's JSON as it arrives (urllib of
+    the stdlib). An error event raises."""
+    import urllib.request
+
+    headers = {"Content-Type": "application/json",
+               "Accept": "text/event-stream"}
+    if model_id:
+        headers["serve_multiplexed_model_id"] = model_id
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{app}", method="POST", headers=headers,
+        data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        kind = resp.headers["Content-Type"]
+        if not kind.startswith("text/event-stream"):
+            raise RuntimeError(f"{app}: expected an event stream, got {kind}")
+        for line in resp:
+            if line.startswith(b"event: error"):
+                raise RuntimeError(f"{app}: error event {resp.read()!r}")
+            if line.startswith(b"data: "):
+                yield json.loads(line[len(b"data: "):])
+
+
+def http_submit(port: int, app: str):
+    """A `submit(prompt, new)` for _stream_all over HTTP SSE: each request
+    reads its stream on a thread of its own and hands the token ids to the
+    event loop as they arrive."""
+    import asyncio
+    import threading
+
+    async def submit(prompt, new):
+        loop = asyncio.get_running_loop()
+        queue: asyncio.Queue = asyncio.Queue()
+        done = object()
+
+        def pump():
+            try:
+                for item in sse_events(port, app, {
+                        "tokens": prompt, "max_new_tokens": new}):
+                    loop.call_soon_threadsafe(queue.put_nowait, item)
+                loop.call_soon_threadsafe(queue.put_nowait, done)
+            except BaseException as e:  # handed to the consumer, raised
+                loop.call_soon_threadsafe(queue.put_nowait, e)
+
+        threading.Thread(target=pump, daemon=True).start()
+        while True:
+            item = await queue.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item["token"]
+    return submit
+
+
+def handle_submit(handle):
+    """A `submit(prompt, new)` for _stream_all through a DeploymentHandle's
+    stream (routed on an executor thread, as the HTTP proxy routes)."""
+    import asyncio
+
+    async def submit(prompt, new):
+        gen = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: handle.options(stream=True).remote(
+                {"tokens": prompt, "max_new_tokens": new}))
+        async for item in gen:
+            yield item["token"]
+    return submit
+
+
+def _call(handle, method: str, timeout: float):
+    """The result of `method` of a deployment's callable, called through
+    its handle."""
+    return handle.options(method_name=method).remote().result(
+        timeout=timeout)
+
+
+def _tagged_stream(handle, model_id: str, prompt: list, new: int) -> list:
+    """One request through the LoRA app's handle: its (token, adapter)
+    items."""
+    return [(d["token"], d["adapter"]) for d in handle.options(
+        stream=True, multiplexed_model_id=model_id or None).remote(
+        {"tokens": prompt, "max_new_tokens": new})]
+
+
+def _gpus_free(rt, want: float, timeout_s: float = 60.0) -> float:
+    """rt.available_resources()["GPU"] once it reads `want` (a killed
+    replica returns its lease asynchronously), or its last reading."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        free = rt.available_resources().get("GPU", 0.0)
+        if free == want or time.monotonic() > deadline:
+            return free
+        time.sleep(0.2)
+
+
+def phase_serve_app_410m(runtime: dict) -> dict:
+    """The 410m engine behind the port's Serve plane: controller, replica,
+    router (DeploymentHandle) and HTTP proxy, on the runtime phases'
+    cluster. Parity in f32: LlamaService deployed with serve.deployment
+    and ray_actor_options={"num_gpus": 1} holds the GPU while it lives
+    (available GPU 0, then 1 after serve.delete); the runtime phase's
+    three parity prompts sent one at a time as HTTP POSTs with Accept:
+    text/event-stream stream the in-process engine's f32 tokens of
+    runtime_serve_410m, token for token. Timing in bf16: serve.run(llm_app)
+    and the same 16 concurrent requests once over HTTP SSE and once
+    through the handle's stream, TTFT (first SSE chunk) and TPOT at the
+    client beside runtime_serve_410m's actor and in-process readings.
+    LoRA: lora_llm_app with rank-16 adapters, requests routed by
+    multiplexed model id ad-a, ad-b, ad-a, ad-c: each stream tagged with
+    its adapter, the seeded (zero-B) adapters' streams equal to the bare
+    base's (a first request to the base's first, the repeat of ad-a, which
+    hits the prefix store, to the base's repeat), two adapters resident
+    before ad-c and ad-c among the two after. Returns the flash launch counts of each app's requests, read in
+    the replica's process."""
+    import asyncio
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import (LlamaService, MultiplexedLoraService,
+                                         llm_app, lora_llm_app)
+
+    vocab = llama.config_for("410m").vocab_size
+    paths = {}
+    t0 = time.perf_counter()
+    port = serve.start(http_port=0)
+    try:
+        # f32 parity through HTTP, the replica leased the node's GPU
+        gpus = rt.available_resources().get("GPU", 0.0)
+        dep = serve.deployment(served(LlamaService, f32=True),
+                               ray_actor_options={"num_gpus": 1},
+                               max_ongoing_requests=64)
+        handle = serve.run(dep.bind("410m", seed=0, **ENGINE_410M),
+                           name="llm_f32")
+        probe = _call(handle, "probe", 600)
+        gpus_while_up = rt.available_resources().get("GPU", 0.0)
+        _call(handle, "reset_launches", 60)
+        via_http = _one_at_a_time(http_submit(port, "llm_f32"),
+                                  parity_requests(vocab))
+        paths["serve_app_f32_http"] = _call(handle, "launches", 60)
+        serve.delete("llm_f32")
+        gpus_after = _gpus_free(rt, gpus)
+        parity = via_http == runtime["parity_streams_in_process"]
+
+        # bf16 timing through llm_app, over HTTP and through the handle
+        app = llm_app("410m", **ENGINE_410M)
+        app.deployment.func_or_class = served(LlamaService)
+        handle = serve.run(app, name="llm")
+        bf16_probe = _call(handle, "probe", 600)
+        warm = _one_at_a_time(handle_submit(handle), [
+            ([1 + i] * m, 4) for i, m in enumerate((100, 400, 1000))])
+        requests = concurrent_requests(vocab)
+        timed = {}
+        for leg, submit in (("http", http_submit(port, "llm")),
+                            ("handle", handle_submit(handle))):
+            _call(handle, "reset_launches", 60)
+            timed[leg] = asyncio.run(_stream_all(submit, requests))
+            paths[f"serve_app_{leg}"] = _call(handle, "launches", 60)
+        engine = _call(handle, "stats", 60)
+        serve.delete("llm")
+        complete = {leg: [len(s) for s in t["streams"]]
+                    == [m for _, m in requests] for leg, t in timed.items()}
+
+        # the LoRA app: routing by multiplexed model id, the LRU's residents
+        app = lora_llm_app("410m", max_adapters_per_replica=2,
+                           lora_rank=LORA_RANK_410M, **ENGINE_410M)
+        app.deployment.func_or_class = served(MultiplexedLoraService)
+        lora = serve.run(app, name="lora")
+        prompt, new = parity_requests(vocab)[0]
+        lora_probe = _call(lora, "probe", 600)
+        _call(lora, "reset_launches", 60)
+        # the bare base ("" id) first, cold and then again: a repeat of a
+        # prompt hits its engine's prefix store, whose bf16 rounding
+        # differs from a cold prefill's, so each adapter's stream is held
+        # against the base's stream of the same kind
+        base = {kind: [t for t, _ in _tagged_stream(lora, "", prompt, new)]
+                for kind in ("cold", "warm")}
+        adapters = ("ad-a", "ad-b", "ad-a", "ad-c")
+        kinds = ("cold", "cold", "warm", "cold")
+        tagged, resident = [], []
+        lora._refresh(force=True)
+        [replica] = lora._replicas
+        for model_id in adapters:
+            if model_id == "ad-c":
+                resident.append(rt.get(replica.get_stats.remote(),
+                                       timeout=60)["models"])
+            tagged.append(_tagged_stream(lora, model_id, prompt, new))
+        resident.append(rt.get(replica.get_stats.remote(),
+                               timeout=60)["models"])
+        paths["serve_app_lora"] = _call(lora, "launches", 60)
+    finally:
+        serve.shutdown()
+    tags_ok = all(len(items) == new and {a for _, a in items} == {model_id}
+                  for model_id, items in zip(adapters, tagged))
+    zero_b_equal = all([t for t, _ in items] == base[kind]
+                       for kind, items in zip(kinds, tagged))
+    residency_ok = (sorted(resident[0]) == ["ad-a", "ad-b"]
+                    and len(resident[1]) == 2 and "ad-c" in resident[1])
+    summary = {leg: _latencies(t) for leg, t in timed.items()}
+    res = {"f32_replica_probe": probe, "bf16_replica_probe": bf16_probe,
+           "lora_replica_probe": lora_probe,
+           "gpu_before": gpus, "gpu_while_f32_replica_up": gpus_while_up,
+           "gpu_after_delete": gpus_after,
+           "parity_streams_equal": parity, "parity_streams_http": via_http,
+           "concurrent_requests": len(requests),
+           "prompt_tokens": sum(len(p) for p, _ in requests),
+           "generated_tokens": sum(m for _, m in requests),
+           "complete": complete,
+           "completed_requests": {
+               leg: sum(len(s) == m for s, (_, m) in zip(t["streams"],
+                                                         requests))
+               for leg, t in timed.items()},
+           **summary,
+           "runtime_actor": {k: runtime["actor"][k] for k in (
+               "ttft", "tpot", "tokens_per_s", "wall_s")},
+           "runtime_in_process": {k: runtime["in_process"][k] for k in (
+               "ttft", "tpot", "tokens_per_s", "wall_s")},
+           "engine_after_timing": {k: engine[k] for k in (
+               "prefills", "prefill_chunks", "batches", "generated_tokens")},
+           "lora_adapters": list(adapters), "lora_tags_ok": tags_ok,
+           "lora_streams": [[t for t, _ in items] for items in tagged],
+           "lora_base_streams": base,
+           "lora_warm_equals_cold": base["warm"] == base["cold"],
+           "lora_zero_b_equal_base": zero_b_equal,
+           "lora_resident_before_ad_c": resident[0],
+           "lora_resident_after": resident[1],
+           "launches": paths, "phase_s": time.perf_counter() - t0,
+           "card": card_line()}
+    ok = (parity and all(complete.values()) and tags_ok and zero_b_equal
+          and residency_ok and probe["cuda"]
+          and probe["dtype"] == "torch.float32"
+          and bf16_probe["dtype"] == "torch.bfloat16"
+          and gpus == 1.0 and gpus_while_up == 0.0 and gpus_after == 1.0)
+    emit("serve_app_410m", **res, ok=ok)
+    if not ok:
+        raise AssertionError("serve_app_410m failed its checks")
+    return paths
+
+
 def phase_runtime(reference_losses: list) -> dict:
-    """The four runtime phases on one cluster, shut down on the way out
-    (its head and every worker stop with it). Returns the train task's
-    launch counts."""
+    """The runtime phases and serve_app_410m on one cluster, shut down on
+    the way out (its head and every worker stop with it). Returns the
+    launch counts of the Serve apps' paths and of the train task."""
     import gc
 
     import torch
@@ -2092,15 +2401,17 @@ def phase_runtime(reference_losses: list) -> dict:
     torch.cuda.empty_cache()       # the card's memory for the workers
     try:
         phase_runtime_cluster()
-        actor = phase_runtime_serve_410m()
+        actor, serve_run = phase_runtime_serve_410m()
         phase_runtime_device_objects(actor)
-        # the actor holds the node's one GPU until it dies: the train task
-        # is leased that GPU next
+        # the actor holds the node's one GPU until it dies: the Serve
+        # phase's replica, then the train task, are leased that GPU next
         rt.kill(actor)
-        train = phase_runtime_train_410m(reference_losses)
+        paths = phase_serve_app_410m(serve_run)
+        paths["runtime_train_410m"] = phase_runtime_train_410m(
+            reference_losses)["launches"]
     finally:
         rt.shutdown()
-    return train["launches"]
+    return paths
 
 
 def main(argv: list[str]) -> int:
@@ -2151,7 +2462,7 @@ def main(argv: list[str]) -> int:
                  info["name"], STEPS_410M, full)["launches"],
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()
-    paths["runtime_train_410m"] = phase_runtime(full["losses"])
+    paths.update(phase_runtime(full["losses"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

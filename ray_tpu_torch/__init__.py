@@ -20,8 +20,16 @@ weight conversion from the JAX package's parameter tree
 serving behind the multiplex LRU (``serve/llm``, ``serve/multiplex``).
 Compute entry points run on the CUDA card unless given ``device="cpu"``.
 
-The package never imports jax. Its root, ``core``, ``_internal`` and
-``util`` never import torch either: workers boot with ``python -S`` in about
+The Serve plane (``serve``: controller, replicas, the DeploymentHandle's
+router, HTTP and gRPC ingress) deploys the engine::
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_app
+    serve.start()
+    handle = serve.run(llm_app("410m"))
+
+The package never imports jax. Its root, ``core``, ``_internal``,
+``util`` and ``serve`` (all but ``serve.llm``) never import torch either: workers boot with ``python -S`` in about
 100 ms and pay torch's import only when a task uses it, so
 ``resolve_device`` is a lazy attribute.
 """

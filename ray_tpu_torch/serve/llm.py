@@ -18,10 +18,13 @@ low-rank path in every prefill and decode step. ``MultiplexedLoraService``
 keeps one engine per adapter id behind the multiplex LRU, all over one set of
 base weight tensors.
 
-Not in this slice: ``llm_app``, ``lora_llm_app`` and the Serve deployment
-(ROADMAP item 8), the disaggregated ``PrefillWorker`` /
-``DecodeLlamaService`` / ``disagg_llm_app`` over device channels (items 6
-and 8), and tensor parallelism (item 9).
+``llm_app`` and ``lora_llm_app`` deploy ``LlamaService`` and
+``MultiplexedLoraService`` as Serve applications (``serve.run``); the
+replica hosting one builds its engine on the card of its process.
+
+Not here: the disaggregated ``PrefillWorker`` / ``DecodeLlamaService`` /
+``disagg_llm_app`` over device channels (ROADMAP item 3), and tensor
+parallelism (item 6).
 """
 
 from __future__ import annotations
@@ -130,7 +133,7 @@ class LLMEngine:
         if tp not in (None, 1):
             raise NotImplementedError(
                 f"tp={tp}: tensor-parallel serving needs the multi-GPU "
-                f"slice (ROADMAP item 9); this engine runs on one device")
+                f"slice (ROADMAP item 6); this engine runs on one device")
         cfg = llama.config_for(preset)
         if max_seq_len is not None:
             cfg = llama.config_for(preset, max_seq_len=max_seq_len)
@@ -739,8 +742,8 @@ class LLMEngine:
 
 
 class LlamaService:
-    """Serve callable hosting one LLMEngine (a plain class here: the Serve
-    deployment arrives with ROADMAP item 8).
+    """Serve callable hosting one LLMEngine (deploy it with ``llm_app`` or
+    ``serve.deployment``).
 
     Request payload: {"tokens": [...] or a string, "max_new_tokens": int,
     "temperature": float} -> streams {"token": id} dicts.
@@ -766,8 +769,9 @@ class LlamaService:
 
 class MultiplexedLoraService:
     """Multi-LoRA serving: one base model, many adapters time-sharing one
-    replica through the multiplex LRU (a plain class here: the Serve
-    deployment and ``lora_llm_app`` arrive with ROADMAP item 8).
+    replica through the multiplex LRU (deploy it with ``lora_llm_app``; the
+    router's model-id affinity keeps an adapter's traffic on the replica
+    where it is resident).
 
     Each adapter id owns an ``LLMEngine`` whose params are
     ``{**base, "lora": adapter}``: the decode steps apply the low-rank path,
@@ -781,7 +785,9 @@ class MultiplexedLoraService:
 
     Request payload: {"tokens": [...] or a string, "max_new_tokens": int,
     "temperature": float}, with the adapter chosen by the multiplexed model
-    id of the request's context; streams {"token": id, "adapter": model_id}.
+    id (HTTP header ``serve_multiplexed_model_id`` /
+    ``handle.options(multiplexed_model_id=...)``); streams
+    {"token": id, "adapter": model_id}.
     """
 
     def __init__(self, preset: str = "debug", *,
@@ -824,3 +830,34 @@ class MultiplexedLoraService:
                 max_new_tokens=int(payload.get("max_new_tokens", 8)),
                 temperature=float(payload.get("temperature", 0.0))):
             yield {"token": int(tok), "adapter": model_id}
+
+
+def llm_app(preset: str = "debug", *, num_replicas: int = 1,
+            max_ongoing_requests: int = 64, **engine_kw):
+    """Build a Serve application hosting ``LlamaService`` (``engine_kw``
+    reaches ``LLMEngine``: ``device``, ``params``, ``max_batch``, ...)."""
+    from ray_tpu_torch.serve.deployment import deployment
+
+    dep = deployment(
+        LlamaService,
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+    )
+    return dep.bind(preset, **engine_kw)
+
+
+def lora_llm_app(preset: str = "debug", *, num_replicas: int = 1,
+                 max_ongoing_requests: int = 16,
+                 max_adapters_per_replica: int = 2, **engine_kw):
+    """Serve application for multi-LoRA multiplexed serving; route
+    requests with handle.options(multiplexed_model_id=<adapter>)."""
+    from ray_tpu_torch.serve.deployment import deployment
+
+    dep = deployment(
+        MultiplexedLoraService,
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+    )
+    return dep.bind(preset,
+                    max_adapters_per_replica=max_adapters_per_replica,
+                    **engine_kw)

@@ -1,21 +1,26 @@
-"""Model multiplexing: many models time-share one replica through a
-per-instance LRU of loaded models (counterpart of
-ray_tpu/serve/multiplex.py, which is jax-free and copied here).
+"""Model multiplexing: many models time-share one replica pool (ref
+analog: python/ray/serve/multiplex.py `_ModelMultiplexWrapper` +
+serve.get_multiplexed_model_id; counterpart of ray_tpu/serve/multiplex.py,
+which is jax-free and copied here).
 
 Usage:
+    @serve.deployment
     class ModelHost:
-        @multiplexed(max_num_models_per_replica=3)
+        @serve.multiplexed(max_num_models_per_replica=3)
         async def get_model(self, model_id: str):
-            return load(model_id)              # LRU-cached per instance
+            return load(model_id)              # LRU-cached per replica
 
         async def __call__(self, payload):
-            model = await self.get_model(get_multiplexed_model_id())
+            model = await self.get_model(serve.get_multiplexed_model_id())
             return model(payload)
 
-The request's model id rides a context variable that the caller sets
-(``_set_model_id``); the Serve handle and proxy that set it from
-``handle.options(multiplexed_model_id=...)`` or an HTTP header arrive with
-the Serve slice (ROADMAP item 8).
+    handle.options(multiplexed_model_id="m7").remote(x)
+    # HTTP: header `serve_multiplexed_model_id: m7`
+
+Routing: the handle remembers which replica last served each model id and
+sends repeat traffic there (model-affinity), falling back to power-of-two
+choices — the single-handle version of the reference's model-id-aware
+replica scheduler.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ its kernel wrappers never fall back to a plain version on a CUDA tensor."""
 
 import ast
 import inspect
+import json
 import os
 import pkgutil
 import subprocess
@@ -37,7 +38,7 @@ def test_package_imports_no_jax_optax_or_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, bad = int(out[0]), out[1:]
-    assert n_modules >= 72
+    assert n_modules >= 79
     assert bad == [], f"ray_tpu_torch pulled in {bad}"
 
 
@@ -160,7 +161,11 @@ def test_every_module_is_walked():
             "ray_tpu_torch.models.llama", "ray_tpu_torch.parallel.spmd",
             "ray_tpu_torch.models.convert", "ray_tpu_torch.serve.llm",
             "ray_tpu_torch.serve.request_context",
-            "ray_tpu_torch.serve.handle", "ray_tpu_torch.models.lora",
+            "ray_tpu_torch.serve.handle", "ray_tpu_torch.serve.deployment",
+            "ray_tpu_torch.serve.schema", "ray_tpu_torch.serve.admission",
+            "ray_tpu_torch.serve.replica", "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.grpc_proxy",
+            "ray_tpu_torch.models.lora",
             "ray_tpu_torch.models.mlp", "ray_tpu_torch.ops.moe",
             "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.api",
             "ray_tpu_torch.cluster_utils", "ray_tpu_torch._native",
@@ -172,3 +177,101 @@ def test_every_module_is_walked():
             "ray_tpu_torch.core.worker_main",
             "ray_tpu_torch.util.builtin_metrics",
             "ray_tpu_torch.experimental.internal_kv"} <= names
+
+
+_SERVE_IMPORT = """
+import sys
+import ray_tpu_torch.serve
+from ray_tpu_torch.serve import (admission, controller, deployment,
+                                 grpc_proxy, handle, multiplex, proxy,
+                                 replica, request_context, schema)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu")))
+"""
+
+
+def test_serve_plane_imports_no_torch():
+    """The Serve plane's modules (all but serve.llm) import neither torch
+    nor jax: the controller, proxy and replica workers boot without
+    them."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SERVE_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]"
+
+
+_SERVE_DRIVER = r"""
+import json
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+from ray_tpu_torch._internal.rpc import connect
+from ray_tpu_torch.core.object_ref import get_core_worker
+
+rt.init(num_cpus=2)
+serve.start(http_port=0)
+from ray_tpu_torch.serve.llm import llm_app
+
+h = serve.run(llm_app("debug", device="cpu", max_batch=2), name="llm")
+out = {"tokens": [d["token"] for d in h.options(stream=True).remote(
+    {"tokens": [1, 2, 3], "max_new_tokens": 2})]}
+h._refresh(force=True)
+actors = {"controller": rt.get_actor("serve_controller"),
+          "proxy": rt.get_actor("serve_proxy"),
+          "replica": h._replicas[0]}
+cw = get_core_worker()
+[node] = cw.io.run(cw.gcs.get_all_nodes())
+
+
+async def workers():
+    conn = await connect(node.address.host, node.address.port)
+    try:
+        return await conn.call("list_workers", timeout=10)
+    finally:
+        await conn.close()
+
+
+pids = {w["actor_id"]: w["pid"] for w in cw.io.run(workers())
+        if w.get("actor_id")}
+for role, actor in actors.items():
+    pid = pids[actor._actor_id.hex()]
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        cmdline = f.read().replace(b"\0", b" ").decode().strip()
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    out[role] = {"cmdline": cmdline, "libtorch": "libtorch" in maps,
+                 "jaxlib": "jaxlib" in maps}
+serve.shutdown()
+rt.shutdown()
+print("RESULT", json.dumps(out), flush=True)
+"""
+
+
+def test_serve_processes_run_the_ports_modules():
+    """llm_app served on the CPU: the controller's, the proxy's and the
+    replica's processes are the port's workers, booted with -S; no process
+    of the cluster (nor the driver) imports jax or the JAX package; only
+    the replica, which builds the engine, maps libtorch."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, PYTHONPROFILEIMPORTTIME="1")
+    proc = subprocess.run([sys.executable, "-c", _SERVE_DRIVER], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=150)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("RESULT "))
+    out = json.loads(line[len("RESULT "):])
+    assert len(out.pop("tokens")) == 2
+    for role, seen in out.items():
+        assert "-S -m ray_tpu_torch.core.worker_main" in seen["cmdline"], role
+        assert not seen["jaxlib"], role
+        assert seen["libtorch"] == (role == "replica"), role
+    imported = [ln.rsplit("|", 1)[1].strip()
+                for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    # the driver, the head and the three actors' workers each log
+    assert imported.count("ray_tpu_torch._internal.ids") >= 5
+    assert "ray_tpu_torch.serve.llm" in imported
+    tops = {name.split(".")[0] for name in imported}
+    assert not tops & {"jax", "jaxlib", "optax", "ray_tpu"}, tops

@@ -1,0 +1,132 @@
+"""Runs a reference test file of the JAX package against ray_tpu_torch.
+
+``run_repointed`` copies one reference test file into a temporary directory
+with exactly the rewrites listed in REWRITES (the package name in import
+statements, ``num_tpus`` -> ``num_gpus``, the "TPU" resource -> "GPU" where
+a resource dict or a resource read names it), and runs the copy under pytest
+in a subprocess beside a conftest that imports no jax and keeps the
+reference conftest's per-test time cap and its ``local_cluster`` fixture. It
+asserts that pytest exits 0, that every test of the file passed, and that an
+import hook installed before any test saw no import of jax or ray_tpu in
+that process. The reference files stay untouched.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import xml.etree.ElementTree as ET
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (pattern, replacement), applied line by line in this order
+REWRITES = (
+    (r"^(\s*)import ray_tpu\b", r"\1import ray_tpu_torch"),
+    (r"^(\s*)from ray_tpu\b", r"\1from ray_tpu_torch"),
+    (r"\bnum_tpus\b", "num_gpus"),
+    # the "TPU" resource, where a resource dict or a resource read names
+    # it; a "TPU" that is data (a greeting's argument) stays as it is
+    (r'\{"TPU":', '{"GPU":'),
+    (r'\.get\("TPU"\)', '.get("GPU")'),
+)
+
+CONFTEST = '''
+import os
+import signal
+import sys
+
+sys.path.insert(0, {root!r})
+
+# record every import of jax or ray_tpu, however it is reached
+_seen = []
+
+
+class _Watch:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ray_tpu"):
+            _seen.append(name)
+        return None
+
+
+sys.meta_path.insert(0, _Watch())
+
+import pytest  # noqa: E402
+
+# the reference conftest's per-test wall-clock cap
+TEST_TIMEOUT_S = int(os.environ.get("RAYT_TEST_TIMEOUT_S", "180"))
+
+
+@pytest.hookimpl(hookwrapper=True)
+def pytest_runtest_call(item):
+    def _on_timeout(signum, frame):
+        raise TimeoutError(
+            f"test exceeded {{TEST_TIMEOUT_S}}s (RAYT_TEST_TIMEOUT_S)")
+
+    old = signal.signal(signal.SIGALRM, _on_timeout)
+    signal.alarm(TEST_TIMEOUT_S)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+@pytest.fixture
+def local_cluster():
+    """A started single-node cluster, shut down after the test."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4, resources={{"GPU": 8}})
+    try:
+        yield ray_tpu_torch
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def pytest_sessionfinish(session, exitstatus):
+    seen = sorted(set(_seen) | {{m for m in sys.modules
+                               if m.split(".")[0] in
+                               ("jax", "jaxlib", "ray_tpu")}})
+    with open(os.environ["RAYT_REPOINT_REPORT"], "w") as f:
+        f.write(__import__("json").dumps(seen))
+'''
+
+
+def repoint(src: str) -> str:
+    lines = []
+    for line in src.split("\n"):
+        for pattern, repl in REWRITES:
+            line = re.sub(pattern, repl, line)
+        lines.append(line)
+    return "\n".join(lines)
+
+
+def run_repointed(name: str, n_tests: int, tmp_path, timeout: float) -> None:
+    """Run tests/<name>.py re-pointed at the port in a pytest subprocess
+    (at most `timeout` s) and assert that all `n_tests` of its tests passed
+    with no import of jax or ray_tpu."""
+    with open(os.path.join(ROOT, "tests", f"{name}.py")) as f:
+        copy = repoint(f.read())
+    assert "ray_tpu_torch" in copy
+    (tmp_path / f"{name}.py").write_text(copy)
+    (tmp_path / "conftest.py").write_text(CONFTEST.format(root=ROOT))
+    report, xml = tmp_path / "imports.json", tmp_path / "junit.xml"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["RAYT_REPOINT_REPORT"] = str(report)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:xdist", "-p", "no:randomly", f"--junitxml={xml}",
+         f"--rootdir={tmp_path}", f"--confcutdir={tmp_path}",
+         str(tmp_path)],
+        cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    tail = (proc.stdout + proc.stderr)[-4000:]
+    assert proc.returncode == 0, tail
+    suite = ET.parse(xml).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    counts = {k: int(suite.get(k)) for k in
+              ("tests", "failures", "errors", "skipped")}
+    assert counts == {"tests": n_tests, "failures": 0, "errors": 0,
+                      "skipped": 0}, tail
+    assert json.loads(report.read_text()) == [], "jax or ray_tpu imported"

@@ -72,6 +72,20 @@ caught, so any failure exits non-zero):
    the replicas are gone (48/24/24 launches a step in the worker; losses
    against train_410m's). The cluster is shut down on the way out, with
    every process it started.
+12. trainer_lora_410m, trainer_corpus, on that cluster once the train
+   task has returned the GPU: two TorchTrainer fits of the reference
+   recipe lora_finetune_loop at the 410m's full width (as
+   lora_train_410m: rank 16, frozen base, b8 s2048, remat "dots", flash),
+   8 steps, a checkpoint every 2, each in a TrainWorker leased the GPU:
+   a clean fit, and one whose batch_fn hard-exits the worker at step 5,
+   restarted from the step-4 checkpoint. Both end at step 8, the
+   restarted fit's final loss equals the clean one's to 1e-6 relative,
+   each worker counts 48/24/24 flash launches a step, the GPU reads 0
+   free while a worker lives and 1 after; wall times and the mean step
+   ms from the step-4 report on, beside lora_train_410m's in-process
+   step. Then corpus_pretrain_loop on the card from a seeded jsonl
+   corpus, uninterrupted and killed once at step 8: the effective
+   consumed token streams are equal, bit for bit.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -93,8 +107,9 @@ last rate's window and the others under "sweep".
 
     python3 chip_smoke.py --runtime
 
-runs device, build, train_410m (for its losses) and the runtime phases
-(serve_app_410m among them) alone.
+runs device, build, train_410m (for its losses), lora_train_410m (for
+its step time) and the runtime phases (serve_app_410m and the trainer
+phases among them) alone.
 """
 
 from __future__ import annotations
@@ -2065,6 +2080,239 @@ def phase_runtime_train_410m(reference_losses: list) -> dict:
     return run
 
 
+# ---------------------------------------------------- the train runtime
+TRAINER_STEPS, TRAINER_REPORT_EVERY = 8, 2
+TRAINER_CRASH_AT = 5          # step index whose batch_fn kills the worker
+TRAINER_TIMED_FROM = 4        # mean step ms from the step-4 report on
+CORPUS_STEPS, CORPUS_CRASH_AT = 16, 8
+
+
+def trainer_batch(i: int, rank: int, vocab: int) -> dict:
+    """The trainer phase's batch for step i: numpy tokens from a seed,
+    [BATCH_410M, SEQ_410M]."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 * rank + i)
+    tokens = rng.integers(0, vocab, (BATCH_410M, SEQ_410M)).astype(np.int32)
+    return {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
+
+
+def trainer_lora_loop(config: dict):
+    """lora_finetune_loop inside a TrainWorker, with the readings only
+    the worker's process has: its flash launch counters (set to 0 before
+    the loop, read after), the steps it ran, the GPU the cluster shows
+    free while it lives, its peak memory, whether the worker was warm
+    (torch already imported: an idle worker reused), the time from the
+    loop's entry to its first batch (params, train step, restore) and
+    from the batch of step TRAINER_TIMED_FROM to the end. A batch_fn
+    hard-exits the worker once at config["crash_at"] (None: never). They
+    ride one more report, after the loop's last."""
+    warm = "torch" in sys.modules
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+    from ray_tpu_torch.train.recipes import lora_finetune_loop
+
+    deadline = time.monotonic() + 30   # the view follows a lease
+    gpu_free = rt.available_resources().get("GPU")
+    while gpu_free != 0.0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+        gpu_free = rt.available_resources().get("GPU")
+    stamps = {}
+    crash_at, marker = config["crash_at"], config["marker"]
+    entered = time.perf_counter()
+
+    def batch_fn(i, rank):
+        if i == crash_at and not os.path.exists(marker):
+            open(marker, "w").close()
+            os._exit(1)                # a hard worker kill, mid-run
+        stamps[i] = time.perf_counter()
+        return trainer_batch(i, rank, config["vocab"])
+
+    reset_launches()                   # counts: the main path only
+    loss = lora_finetune_loop({**config, "batch_fn": batch_fn})
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    steps = sorted(stamps)
+    train.report({
+        "loss": loss, "step": steps[-1] + 1, "steps_run": steps,
+        "launches": dict(launches), "gpu_free_in_worker": gpu_free,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mean_step_ms": (end - stamps[TRAINER_TIMED_FROM])
+        / (steps[-1] + 1 - TRAINER_TIMED_FROM) * 1e3,
+        "warm_worker": warm, "setup_s": stamps[steps[0]] - entered,
+        "loop_s": end - entered,
+        "device": str(train.get_context().get_device())})
+    return loss
+
+
+def _trainer_fit(rt, loop, config: dict, name: str, storage: str,
+                 max_failures: int, ingest=None):
+    """One TorchTrainer fit on one GPU worker; returns the result, its
+    wall time and the GPU free after it."""
+    from ray_tpu_torch import train
+
+    t0 = time.perf_counter()
+    result = train.TorchTrainer(
+        loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True,
+                                           ingest=ingest),
+        run_config=train.RunConfig(
+            name=name, storage_path=storage,
+            failure_config=train.FailureConfig(
+                max_failures=max_failures))).fit()
+    wall_s = time.perf_counter() - t0
+    return result, wall_s, _gpus_free(rt, 1.0)
+
+
+def phase_trainer_lora_410m(lora_step_ms: float, storage: str) -> dict:
+    """Two TorchTrainer fits of the reference recipe lora_finetune_loop at
+    the 410m's full width (config_410m: s2048, remat "dots", flash; rank
+    16 on wq wk wv wo, frozen base; b8, bf16 compute, f32 params, AdamW),
+    TRAINER_STEPS steps, a checkpoint every TRAINER_REPORT_EVERY: a clean
+    fit, and one whose batch_fn hard-exits the worker once at step
+    TRAINER_CRASH_AT, which restarts from the step-4 checkpoint. Holds:
+    both end at step 8; the restarted fit's final loss equals the clean
+    one's to 1e-6 relative (the base is frozen: no embedding atomics);
+    48/24/24 flash launches a step in each worker; the GPU free at 0
+    while a worker lives and at 1 after. Prints each fit's wall time and
+    mean step ms beside lora_train_410m's in-process step."""
+    import ray_tpu_torch as rt
+
+    cfg = config_410m()
+    config = {"preset": "410m", "lora_rank": LORA_RANK_410M,
+              "model_overrides": {"max_seq_len": SEQ_410M, "remat": True,
+                                  "remat_policy": "dots",
+                                  "attn_impl": "flash"},
+              "steps": TRAINER_STEPS, "report_every": TRAINER_REPORT_EVERY,
+              "batch_size": BATCH_410M, "seq_len": SEQ_410M, "lr": 3e-4,
+              "seed": 0, "vocab": cfg.vocab_size}
+    fits = {}
+    for name, crash_at in (("clean", None), ("restarted", TRAINER_CRASH_AT)):
+        marker = os.path.join(storage, f"lora-{name}.crashed")
+        result, wall_s, gpu_after = _trainer_fit(
+            rt, trainer_lora_loop,
+            {**config, "crash_at": crash_at, "marker": marker},
+            f"lora-{name}", storage, max_failures=int(crash_at is not None))
+        m = result.metrics
+        steps_run = len(m["steps_run"])
+        want = {"flash_fwd": 2 * cfg.n_layers * steps_run,
+                "flash_bwd_dq": cfg.n_layers * steps_run,
+                "flash_bwd_dkv": cfg.n_layers * steps_run}
+        fits[name] = {"loss": m["loss"], "step": m["step"],
+                      "steps_run": m["steps_run"], "launches": m["launches"],
+                      "expected_launches": want,
+                      "mean_step_ms": m["mean_step_ms"],
+                      "peak_mem_gb": m["peak_mem_gb"], "wall_s": wall_s,
+                      "warm_worker": m["warm_worker"],
+                      "setup_s": m["setup_s"], "loop_s": m["loop_s"],
+                      "gpu_free_in_worker": m["gpu_free_in_worker"],
+                      "gpu_free_after": gpu_after, "device": m["device"],
+                      "crashed": os.path.exists(marker)}
+    clean, restarted = fits["clean"], fits["restarted"]
+    # the restarted worker resumes from the last checkpoint before the crash
+    resume = TRAINER_CRASH_AT // TRAINER_REPORT_EVERY * TRAINER_REPORT_EVERY
+    rel = abs(restarted["loss"] - clean["loss"]) / abs(clean["loss"])
+    ok = (all(f["step"] == TRAINER_STEPS and f["launches"] ==
+              f["expected_launches"] and f["gpu_free_in_worker"] == 0.0
+              and f["gpu_free_after"] == 1.0 and f["device"] == "cuda"
+              and math.isfinite(f["loss"]) for f in fits.values())
+          and not clean["crashed"] and restarted["crashed"]
+          and clean["steps_run"] == list(range(TRAINER_STEPS))
+          and restarted["steps_run"] == list(range(resume, TRAINER_STEPS))
+          and rel <= 1e-6)
+    emit("trainer_lora_410m", **fits, loss_rel_diff=rel,
+         loss_abs_diff=abs(restarted["loss"] - clean["loss"]),
+         tolerance=1e-6, lora_train_410m_step_ms=lora_step_ms,
+         clean_vs_in_process=clean["mean_step_ms"] / lora_step_ms,
+         steps=TRAINER_STEPS, report_every=TRAINER_REPORT_EVERY,
+         crash_at=TRAINER_CRASH_AT, timed_from=TRAINER_TIMED_FROM,
+         rank=LORA_RANK_410M, batch=BATCH_410M, seq=SEQ_410M, ok=ok)
+    if not ok:
+        raise AssertionError("trainer_lora_410m failed its checks")
+    return clean["launches"]
+
+
+def write_corpus(root: str, shards: int = 8, docs: int = 30,
+                 seed: int = 1) -> str:
+    """A seeded jsonl token corpus (the reference ingest test's shape)."""
+    import numpy as np
+
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for s in range(shards):
+        with open(os.path.join(corpus, f"s{s:03d}.jsonl"), "w") as f:
+            for _ in range(docs):
+                toks = rng.integers(1, 100, rng.integers(5, 60)).tolist()
+                f.write(json.dumps({"tokens": toks}) + "\n")
+    return corpus
+
+
+def phase_trainer_corpus(storage: str) -> dict:
+    """corpus_pretrain_loop on the card from a seeded jsonl corpus through
+    the session's ingest (pinned host copies moved to the card), with
+    trace_dir: an uninterrupted fit, and one killed once with
+    crash_at_step that resumes from its checkpoint (the cursor rides in
+    it). The effective consumed token streams are equal, bit for bit."""
+    import glob
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import IngestSpec, corpus_pretrain_loop
+
+    corpus = write_corpus(storage)
+    spec = IngestSpec(paths=corpus, seq_len=32, batch_blocks=4, eos_id=0,
+                      epochs=4)
+    traces, res = {}, {}
+    for name, crash_at in (("clean", None), ("restarted", CORPUS_CRASH_AT)):
+        trace = os.path.join(storage, f"trace-{name}")
+        config = {"steps": CORPUS_STEPS, "checkpoint_every": 3,
+                  "trace_dir": trace, "vocab_size": 101}
+        if crash_at is not None:
+            config["crash_at_step"] = crash_at
+        result, wall_s, gpu_after = _trainer_fit(
+            rt, corpus_pretrain_loop, config, f"corpus-{name}", storage,
+            max_failures=1, ingest=spec)
+        traces[name] = sorted(glob.glob(os.path.join(trace, "rank0",
+                                                     "step_*.npy")))
+        res[name] = {"step": result.metrics["step"], "wall_s": wall_s,
+                     "loss": result.metrics["loss"],
+                     "gpu_free_after": gpu_after, "crashed": os.path.exists(
+                         os.path.join(storage, f"corpus-{name}",
+                                      ".crashed-rank_0"))}
+    same = [np.array_equal(np.load(a), np.load(b))
+            for a, b in zip(traces["clean"], traces["restarted"])]
+    ok = (len(traces["clean"]) == len(traces["restarted"]) == CORPUS_STEPS
+          and all(same) and res["restarted"]["crashed"]
+          and not res["clean"]["crashed"]
+          and all(r["step"] == CORPUS_STEPS and r["gpu_free_after"] == 1.0
+                  for r in res.values()))
+    emit("trainer_corpus", **res, steps_equal=sum(same),
+         steps=CORPUS_STEPS, crash_at=CORPUS_CRASH_AT, ok=ok)
+    if not ok:
+        raise AssertionError("trainer_corpus failed its checks")
+    return res
+
+
+def phase_trainer(lora_step_ms: float) -> dict:
+    """The train runtime's phases, in a temporary directory removed on
+    the way out. Returns the clean LoRA fit's launch counts."""
+    import shutil
+    import tempfile
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        launches = phase_trainer_lora_410m(lora_step_ms, storage)
+        phase_trainer_corpus(storage)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    return launches
+
+
 def phase_runtime_device_objects(actor) -> dict:
     """In the GPU actor, rt.put_device of layer 0's K cache ([8, 2048, 16,
     64] bf16, 33.5 MB): rt.get in the holder is the same object; rt.get in
@@ -2387,10 +2635,11 @@ def phase_serve_app_410m(runtime: dict) -> dict:
     return paths
 
 
-def phase_runtime(reference_losses: list) -> dict:
-    """The runtime phases and serve_app_410m on one cluster, shut down on
-    the way out (its head and every worker stop with it). Returns the
-    launch counts of the Serve apps' paths and of the train task."""
+def phase_runtime(reference_losses: list, lora_step_ms: float) -> dict:
+    """The runtime phases, serve_app_410m and the train runtime's phases
+    on one cluster, shut down on the way out (its head and every worker
+    stop with it). Returns the launch counts of the Serve apps' paths, of
+    the train task and of the clean TorchTrainer LoRA fit."""
     import gc
 
     import torch
@@ -2409,6 +2658,8 @@ def phase_runtime(reference_losses: list) -> dict:
         paths = phase_serve_app_410m(serve_run)
         paths["runtime_train_410m"] = phase_runtime_train_410m(
             reference_losses)["launches"]
+        # the train task has returned the GPU: the TrainWorkers lease it
+        paths["trainer_lora_410m"] = phase_trainer(lora_step_ms)
     finally:
         rt.shutdown()
     return paths
@@ -2434,7 +2685,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--runtime"]:
         info = phase_device()
         phase_build()
-        phase_runtime(phase_train_410m(info["name"], STEPS_410M)["losses"])
+        full = phase_train_410m(info["name"], STEPS_410M)
+        lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
+        phase_runtime(full["losses"], lora_run["step_ms"])
         return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama
@@ -2457,12 +2710,12 @@ def main(argv: list[str]) -> int:
     phase_serve_410m()
     phase_lora_parity()
     phase_moe_parity()
+    lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
     paths = {"train_410m": full["launches"],
-             "lora_train_410m": phase_lora_train_410m(
-                 info["name"], STEPS_410M, full)["launches"],
+             "lora_train_410m": lora_run["launches"],
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()
-    paths.update(phase_runtime(full["losses"]))
+    paths.update(phase_runtime(full["losses"], lora_run["step_ms"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

@@ -28,10 +28,23 @@ router, HTTP and gRPC ingress) deploys the engine::
     serve.start()
     handle = serve.run(llm_app("410m"))
 
+The train runtime (``train``: ``TorchTrainer``, the worker group, the
+session, checkpoints, corpus ingest, the recipes) runs a train loop in
+GPU-leased workers, restarting from the latest checkpoint after a worker
+dies; ``util.collective`` gives a group of workers its host-side barrier
+and allreduce, and ``data.llm_corpus`` the token corpus ingest reads::
+
+    from ray_tpu_torch import train
+    train.TorchTrainer(train.lora_finetune_loop,
+                       train_loop_config={"preset": "410m"},
+                       scaling_config=train.ScalingConfig(num_workers=1),
+                       ).fit()
+
 The package never imports jax. Its root, ``core``, ``_internal``,
-``util`` and ``serve`` (all but ``serve.llm``) never import torch either: workers boot with ``python -S`` in about
-100 ms and pay torch's import only when a task uses it, so
-``resolve_device`` is a lazy attribute.
+``util``, ``serve`` (all but ``serve.llm``), ``train`` and ``data`` never
+import torch either (the train recipes import it inside their bodies):
+workers boot with ``python -S`` in about 100 ms and pay torch's import
+only when a task uses it, so ``resolve_device`` is a lazy attribute.
 """
 
 __version__ = "0.1.0"
@@ -57,8 +70,8 @@ from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
 
 # subpackages of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"dag": "3", "collective": "3", "train": "4", "rl": "7",
-               "data": "8", "tune": "8", "state_api": "2b"}
+_NOT_PORTED = {"dag": "3", "collective": "3", "rl": "7", "tune": "8",
+               "state_api": "2b"}
 
 
 def __getattr__(name):
@@ -67,7 +80,8 @@ def __getattr__(name):
         from ray_tpu_torch.device import resolve_device
 
         return resolve_device
-    if name in ("util", "serve", "models", "ops", "parallel", "experimental"):
+    if name in ("util", "serve", "models", "ops", "parallel", "experimental",
+                "train", "data"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

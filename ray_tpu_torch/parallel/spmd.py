@@ -8,7 +8,12 @@ Usage:
 
 The step updates the parameters and the optimizer state in place (the
 reference donates its state buffers to the same end), so a parameter keeps
-its dtype across steps.
+its dtype across steps. The state owns a copy of the params and its
+optimizer is bound to those leaves: a restore (the train runtime's
+``train.recipes.lora_finetune_loop`` after a worker restart) writes saved
+values into them in place and then loads the optimizer's ``state_dict``,
+whose moments pair with the trainable leaves by position (their order is
+the same on every build).
 """
 
 from __future__ import annotations

@@ -781,7 +781,9 @@ class MultiplexedLoraService:
 
     ``_load_adapter`` seeds adapters from the adapter id, as the reference
     does: the stand-in for fetching trained A/B from storage (B = 0, so a
-    seeded adapter starts as a no-op); override it to load real ones.
+    seeded adapter starts as a no-op); override it to load real ones, such
+    as the ``"lora"`` subtree of a checkpoint that the train runtime's
+    ``lora_finetune_loop`` wrote (``train.load_pytree``).
 
     Request payload: {"tokens": [...] or a string, "max_new_tokens": int,
     "temperature": float}, with the adapter chosen by the multiplexed model

@@ -1,16 +1,18 @@
-"""Utility layer: actor pool, queue, metrics (ref analog: python/ray/util/).
-The collective backends (``util.collective``) wait for the device plane,
-ROADMAP.md item 3."""
+"""Utility layer: actor pool, queue, metrics and the host tier of the
+collectives (ref analog: python/ray/util/). ``util.collective`` carries
+rendezvous, barriers and numpy allreduce/allgather/broadcast between
+processes over TCP; its device tier (``backend="nccl"``) is ROADMAP.md
+item 3."""
 
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["ActorPool", "Queue", "metrics", "builtin_metrics"]
+__all__ = ["ActorPool", "Queue", "metrics", "builtin_metrics", "collective"]
 
 
 def __getattr__(name):
-    if name in ("metrics", "builtin_metrics"):
+    if name in ("metrics", "builtin_metrics", "collective"):
         return importlib.import_module(f"ray_tpu_torch.util.{name}")
     if name == "ActorPool":
         from ray_tpu_torch.util.actor_pool import ActorPool
@@ -20,8 +22,5 @@ def __getattr__(name):
         from ray_tpu_torch.util.queue import Queue
 
         return Queue
-    if name == "collective":
-        raise NotImplementedError("ray_tpu_torch.util.collective is not "
-                                  "ported yet (ROADMAP.md item 3)")
     raise AttributeError(
         f"module 'ray_tpu_torch.util' has no attribute {name!r}")

@@ -176,7 +176,41 @@ def test_every_module_is_walked():
             "ray_tpu_torch.core.device_objects",
             "ray_tpu_torch.core.worker_main",
             "ray_tpu_torch.util.builtin_metrics",
-            "ray_tpu_torch.experimental.internal_kv"} <= names
+            "ray_tpu_torch.experimental.internal_kv",
+            "ray_tpu_torch.util.collective.collective",
+            "ray_tpu_torch.util.collective.store",
+            "ray_tpu_torch.data.llm_corpus",
+            "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.config",
+            "ray_tpu_torch.train.controller", "ray_tpu_torch.train.ingest",
+            "ray_tpu_torch.train.recipes", "ray_tpu_torch.train.session",
+            "ray_tpu_torch.train.telemetry", "ray_tpu_torch.train.trainer",
+            "ray_tpu_torch.train.worker_group"} <= names
+
+
+_TRAIN_IMPORT = """
+import sys
+import ray_tpu_torch.train
+import ray_tpu_torch.util.collective
+import ray_tpu_torch.data.llm_corpus
+from ray_tpu_torch.train import (checkpoint, config, controller, ingest,
+                                 recipes, session, telemetry, trainer,
+                                 worker_group)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu")))
+"""
+
+
+def test_train_collective_and_corpus_import_no_jax_and_no_torch():
+    """ray_tpu_torch.train (every module), util.collective and
+    data.llm_corpus import neither jax nor ray_tpu, and none of them
+    imports torch: train workers boot without it, and a numpy-only train
+    loop never pays for it (the recipes import torch in their bodies)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TRAIN_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]"
 
 
 _SERVE_IMPORT = """

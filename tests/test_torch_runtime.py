@@ -309,10 +309,13 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
         Cluster(autoscaler_config={"node_types": []})
     with pytest.raises(NotImplementedError, match="item 3"):
         rt.dag  # noqa: B018
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rt.train  # noqa: B018
+    with pytest.raises(NotImplementedError, match="item 7"):
+        rt.rl  # noqa: B018
+    # the train runtime and the host collective tier are ported; the
+    # device tier of the collectives is not
+    assert rt.train.TorchTrainer is not None
     with pytest.raises(NotImplementedError, match="item 3"):
-        rt.util.collective  # noqa: B018
+        rt.util.collective.init_collective_group(2, 0, backend="nccl")
 
 
 def test_head_main_refuses_the_dashboard_and_autoscaler():

@@ -3,14 +3,18 @@
 ``run_repointed`` copies one reference test file into a temporary directory
 with exactly the rewrites listed in REWRITES (the package name in import
 statements, ``num_tpus`` -> ``num_gpus``, the "TPU" resource -> "GPU" where
-a resource dict or a resource read names it), and runs the copy under pytest
-in a subprocess beside a conftest that imports no jax and keeps the
-reference conftest's per-test time cap and its ``local_cluster`` fixture. It
-asserts that pytest exits 0, that every test of the file passed, and that an
-import hook installed before any test saw no import of jax or ray_tpu in
-that process. The reference files stay untouched.
+a resource dict or a resource read names it) plus the file's own in
+FILE_REWRITES, and runs the copy under pytest in a subprocess beside a
+conftest that imports no jax and keeps the reference conftest's per-test
+time cap and its ``local_cluster`` fixture. The tests named in DESELECT for
+that file are deselected; each names why, the ROADMAP.md item that brings
+it and the torch test that stands in for it. It asserts that pytest exits
+0, that every selected test of the file passed, and that an import hook
+installed before any test saw no import of jax or ray_tpu in that process.
+The reference files stay untouched.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -30,6 +34,62 @@ REWRITES = (
     (r'\{"TPU":', '{"GPU":'),
     (r'\.get\("TPU"\)', '.get("GPU")'),
 )
+
+# the train files' own rewrites: the trainer's name, and the CPU asked for
+# where a ScalingConfig is built (the port's default leases a GPU, as the
+# reference's loops ask for the CPU with jax_platforms=cpu)
+TRAIN_REWRITES = (
+    (r"\bJaxTrainer\b", "TorchTrainer"),
+    (r"\bScalingConfig\(", "ScalingConfig(use_gpu=False, "),
+)
+FILE_REWRITES = {"test_train": TRAIN_REWRITES,
+                 "test_ingest_train": TRAIN_REWRITES,
+                 "test_train_observability": TRAIN_REWRITES}
+
+
+@dataclasses.dataclass(frozen=True)
+class Deselect:
+    """A reference test left out of a re-pointed run: why, the ROADMAP.md
+    item that brings it (None when a twin covers all of it), and its twin,
+    ``"tests/<file>.py::<test>"`` (None when only the item covers it)."""
+    reason: str
+    item: str | None
+    twin: str | None
+
+
+_JAX_BODY = "its body runs jax"
+_TWINS = "tests/test_torch_train.py::"
+DESELECT = {
+    "test_train": {
+        "test_save_load_pytree": Deselect(
+            _JAX_BODY + " (jnp leaves)", None,
+            _TWINS + "test_save_load_pytree_torch"),
+        "test_jax_trainer_ddp_mesh": Deselect(
+            _JAX_BODY + " (an optax MLP step over a mesh)", "6",
+            _TWINS + "test_torch_trainer_mlp_on_get_device"),
+        "test_lora_finetune": Deselect(
+            _JAX_BODY + " (the JAX recipe on a dp x fsdp x tensor mesh)",
+            "6", _TWINS + "test_lora_finetune_torch"),
+        "test_lora_resume_restores_exact_trajectory": Deselect(
+            _JAX_BODY + " (jax.random batches in its batch_fn)", None,
+            _TWINS + "test_lora_resume_restores_exact_trajectory_torch"),
+        "test_elastic_scaling_remesh_on_node_death": Deselect(
+            _JAX_BODY + " (a jitted sum over each group's mesh)", "6",
+            "tests/test_torch_train_elastic.py::"
+            "test_elastic_scaling_on_node_death_torch"),
+    },
+    "test_train_observability": {
+        "test_recorder_wrap_jit_compile_and_retrace": Deselect(
+            _JAX_BODY + " (jnp arrays through wrap_jit)", None,
+            _TWINS + "test_recorder_wrap_jit_torch_tensors"),
+        "test_e2e_run_waterfall_compile_memory_and_cli": Deselect(
+            "reads state_api and the rayt CLI", "2b", None),
+        "test_pause_ingest_stall_drill": Deselect(
+            "reads state_api", "2b", None),
+        "test_rl_learner_emits_step_waterfall": Deselect(
+            "drives the RL learner (ray_tpu.rl)", "7", None),
+    },
+}
 
 CONFTEST = '''
 import os
@@ -93,22 +153,45 @@ def pytest_sessionfinish(session, exitstatus):
 '''
 
 
-def repoint(src: str) -> str:
+def repoint(src: str, extra: tuple = ()) -> str:
     lines = []
     for line in src.split("\n"):
-        for pattern, repl in REWRITES:
+        for pattern, repl in REWRITES + tuple(extra):
             line = re.sub(pattern, repl, line)
         lines.append(line)
     return "\n".join(lines)
 
 
+def _defines(path: str, test: str) -> bool:
+    with open(path) as f:
+        return re.search(rf"^def {test}\(", f.read(), re.M) is not None
+
+
+def check_deselects(name: str) -> dict:
+    """DESELECT's entries for tests/<name>.py, after checking that each
+    names a test the file defines, gives a reason, and has a ROADMAP item
+    or a twin that exists."""
+    entries = DESELECT.get(name, {})
+    for test, why in entries.items():
+        assert _defines(os.path.join(ROOT, "tests", f"{name}.py"), test), \
+            f"{name}.py has no test {test}"
+        assert why.reason and (why.item or why.twin), (test, why)
+        if why.twin:
+            path, twin = why.twin.split("::")
+            assert _defines(os.path.join(ROOT, path), twin), why.twin
+    return entries
+
+
 def run_repointed(name: str, n_tests: int, tmp_path, timeout: float) -> None:
     """Run tests/<name>.py re-pointed at the port in a pytest subprocess
-    (at most `timeout` s) and assert that all `n_tests` of its tests passed
-    with no import of jax or ray_tpu."""
+    (at most `timeout` s), its DESELECT entries left out, and assert that
+    all `n_tests` selected tests passed with no import of jax or
+    ray_tpu."""
     with open(os.path.join(ROOT, "tests", f"{name}.py")) as f:
-        copy = repoint(f.read())
+        copy = repoint(f.read(), FILE_REWRITES.get(name, ()))
     assert "ray_tpu_torch" in copy
+    deselect = [f"--deselect={name}.py::{test}"
+                for test in check_deselects(name)]
     (tmp_path / f"{name}.py").write_text(copy)
     (tmp_path / "conftest.py").write_text(CONFTEST.format(root=ROOT))
     report, xml = tmp_path / "imports.json", tmp_path / "junit.xml"
@@ -118,7 +201,7 @@ def run_repointed(name: str, n_tests: int, tmp_path, timeout: float) -> None:
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-p", "no:xdist", "-p", "no:randomly", f"--junitxml={xml}",
          f"--rootdir={tmp_path}", f"--confcutdir={tmp_path}",
-         str(tmp_path)],
+         *deselect, str(tmp_path)],
         cwd=tmp_path, env=env, capture_output=True, text=True,
         timeout=timeout)
     tail = (proc.stdout + proc.stderr)[-4000:]

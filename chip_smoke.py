@@ -86,6 +86,29 @@ caught, so any failure exits non-zero):
    step. Then corpus_pretrain_loop on the card from a seeded jsonl
    corpus, uninterrupted and killed once at step 8: the effective
    consumed token streams are equal, bit for bit.
+13. dag_device, dag_train_410m, disagg_app_410m, on that cluster once the
+   trainers have returned the GPU: the compiled-graph plane. dag_device: a
+   same-process DeviceChannel hands a CUDA tensor over as the same object
+   (same data_ptr); a compiled DAG of two actors leased half the card each
+   sends a bf16 and an f32 CUDA tensor (33.5 MB each) over a
+   with_tensor_transport() edge, rebuilt on cuda in the consumer and
+   bit-equal (ticks/s and MB/s of the edge); device_input=True broadcasts
+   CUDA weights to both; then _internal/perf's DAG legs on this host, the
+   device legs' tensors on the card.
+   dag_train_410m: InputNode -> a CPU feeder sending batch_410m's batch as
+   numpy over a device edge -> a learner actor leased the GPU running the
+   410m train step on the CUDA tensors the edge rebuilt: 2 + 3 ticks whose
+   losses equal train_410m's to 1e-6 relative, 48/24/24 flash launches a
+   tick, tick ms beside the in-process step. disagg_app_410m:
+   disagg_llm_app's two pools (PrefillWorker, DecodeLlamaService) of the
+   410m engine, leased half the card each: f32 streams of the 3 parity
+   requests over HTTP SSE equal the in-process engine's; bf16 with the 16
+   concurrent requests (TTFT, TPOT, tokens/s beside serve_app_410m's
+   llm_app; each stream equal to llm_app's); the handoffs the decode pool
+   read under that load, from its stats (edge kind, bytes, the call's and
+   the read's ms); no prefill in the decode pool and no flash kernel in
+   either. Each holds the GPU's
+   reading at 0 while its actors or pools live and 1 after.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -107,9 +130,9 @@ last rate's window and the others under "sweep".
 
     python3 chip_smoke.py --runtime
 
-runs device, build, train_410m (for its losses), lora_train_410m (for
-its step time) and the runtime phases (serve_app_410m and the trainer
-phases among them) alone.
+runs device, build, train_410m (for its losses and step time),
+lora_train_410m (for its step time) and the runtime phases (serve_app_410m,
+the trainer and the compiled-graph phases among them) alone.
 """
 
 from __future__ import annotations
@@ -2508,8 +2531,9 @@ def phase_serve_app_410m(runtime: dict) -> dict:
     its adapter, the seeded (zero-B) adapters' streams equal to the bare
     base's (a first request to the base's first, the repeat of ad-a, which
     hits the prefix store, to the base's repeat), two adapters resident
-    before ad-c and ad-c among the two after. Returns the flash launch counts of each app's requests, read in
-    the replica's process."""
+    before ad-c and ad-c among the two after. Returns the flash launch
+    counts of each app's requests, read in the replica's process, and
+    llm_app's latencies over HTTP (TTFT, TPOT, tokens/s)."""
     import asyncio
 
     import ray_tpu_torch as rt
@@ -2632,14 +2656,425 @@ def phase_serve_app_410m(runtime: dict) -> dict:
     emit("serve_app_410m", **res, ok=ok)
     if not ok:
         raise AssertionError("serve_app_410m failed its checks")
-    return paths
+    return paths, {**summary["http"], "streams": timed["http"]["streams"]}
 
 
-def phase_runtime(reference_losses: list, lora_step_ms: float) -> dict:
-    """The runtime phases, serve_app_410m and the train runtime's phases
-    on one cluster, shut down on the way out (its head and every worker
-    stop with it). Returns the launch counts of the Serve apps' paths, of
-    the train task and of the clean TorchTrainer LoRA fit."""
+# ------------------------------------------------ the compiled-graph plane
+# dag_device's cross-process edge: layer 0's K cache of runtime_device_
+# objects in bf16 and an f32 tensor of the same byte size, 33.5 MB each
+DAG_KV_SHAPE = (8, 2048, 16, 64)
+DAG_F32_SHAPE = (4, 2048, 16, 64)
+DAG_DEVICE_TICKS = 10          # timed, after 2 warm-up ticks
+DAG_TRAIN_TICKS = 3            # timed, after 2 warm-up ticks
+
+
+def _seeded_payload(seed: int) -> dict:
+    """dag_device's edge payload on the card, drawn from `seed`: a bf16
+    tensor of DAG_KV_SHAPE and an f32 one of DAG_F32_SHAPE; any process
+    on the same card draws the same bits."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(DAG_KV_SHAPE, generator=gen, device="cuda")
+    v = torch.randn(DAG_F32_SHAPE, generator=gen, device="cuda")
+    return {"k": k.to(torch.bfloat16), "v": v}
+
+
+def _same_bits(got: dict, want: dict) -> bool:
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return all(got[key].is_cuda and got[key].dtype == want[key].dtype
+               and torch.equal(got[key].view(ints[got[key].dtype]),
+                               want[key].view(ints[want[key].dtype]))
+               for key in want)
+
+
+class DagStage:
+    """An actor of dag_device, leased half the card: `make` draws the
+    seeded payload on the card and returns it onto a device edge (never
+    touching it again); `check` receives it rebuilt in its own process and
+    draws the same payload to compare, bit for bit; `load` checks a
+    broadcast of weights the same way."""
+
+    def __init__(self):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("a GPU-leased actor sees no CUDA device")
+
+    def make(self, seed: int) -> dict:
+        return {"seed": seed, **_seeded_payload(seed)}
+
+    def check(self, payload: dict) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        want = _seeded_payload(payload["seed"])
+        return {"seed": payload["seed"], "on_cuda": all(
+            payload[k].is_cuda for k in ("k", "v")),
+            "bit_equal": _same_bits(payload, want),
+            "dtypes": [str(payload[k].dtype) for k in ("k", "v")]}
+
+    def load(self, weights: dict) -> dict:
+        want = _seeded_payload(weights["seed"])
+        return {"on_cuda": all(weights[k].is_cuda for k in ("k", "v")),
+                "bit_equal": _same_bits(weights, want)}
+
+
+def phase_dag_device(fetch_mb_per_s: float) -> dict:
+    """Device edges of a compiled DAG on the card. (1) A same-process
+    DeviceChannel hands a CUDA tensor over: the read is the same object
+    with the same data_ptr. (2) Two DagStage actors, each leased
+    num_gpus=0.5: make -> check over a with_tensor_transport() edge
+    carrying a bf16 and an f32 CUDA tensor (33.5 MB each); the consumer's
+    tensors are on cuda and bit-equal to the producer's draw; ticks/s and
+    MB/s of the edge over DAG_DEVICE_TICKS timed ticks, beside
+    runtime_device_objects' host-staged fetch of this run
+    (`fetch_mb_per_s`). (3) device_input=True broadcasts CUDA weights from
+    the driver to both actors, bit-equal in each. Then the DAG legs of
+    _internal/perf.run_microbenchmarks on this host."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._internal.perf import run_microbenchmarks
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+    from ray_tpu_torch.dag.device_channel import DeviceChannel, attach_device
+
+    t_phase = time.perf_counter()
+    # (1) the same-process handoff: the tensor object itself
+    ch = DeviceChannel.create(n_slots=2)
+    peer = attach_device(ch.spec)
+    sent = _seeded_payload(0)["k"]
+    ch.write(sent)
+    got = peer.read(timeout=10)
+    same_object = got is sent and got.data_ptr() == sent.data_ptr()
+    peer.close()
+    ch.close()
+
+    # (2) a cross-process device edge between two actors sharing the card
+    stage = rt.remote(num_gpus=0.5, max_restarts=0)(DagStage)
+    prod, cons = stage.remote(), stage.remote()
+    gpus_while_up = _gpus_free(rt, 0.0)
+    payload_bytes = 2 * math.prod(DAG_KV_SHAPE) * 2
+    with InputNode() as inp:
+        out = cons.check.bind(prod.make.bind(inp).with_tensor_transport())
+    dag = out.experimental_compile(
+        buffer_size_bytes=payload_bytes + (1 << 20), max_inflight=2)
+    kinds = dict(dag.channel_kinds)
+    checks, tick_s = [], []
+    try:
+        for i in range(2 + DAG_DEVICE_TICKS):
+            t0 = time.perf_counter()
+            checks.append(dag.execute(i).get(timeout=120))
+            if i >= 2:
+                tick_s.append(time.perf_counter() - t0)
+    finally:
+        dag.teardown()
+    edge_ok = all(c["on_cuda"] and c["bit_equal"] and c["seed"] == i
+                  for i, c in enumerate(checks))
+
+    # (3) device_input=True: the driver's CUDA weights to both actors
+    with InputNode() as inp:
+        bcast = MultiOutputNode([prod.load.bind(inp), cons.load.bind(inp)])
+    bdag = bcast.experimental_compile(
+        device_input=True, buffer_size_bytes=payload_bytes + (1 << 20),
+        max_inflight=2)
+    try:
+        loads = [bdag.execute({"seed": s, **_seeded_payload(s)}).get(
+            timeout=120) for s in (7, 8)]
+        bcast_kinds = dict(bdag.channel_kinds)
+    finally:
+        bdag.teardown()
+    bcast_ok = all(r["on_cuda"] and r["bit_equal"] for pair in loads
+                   for r in pair)
+    rt.kill(prod)
+    rt.kill(cons)
+    gpus_after = _gpus_free(rt, 1.0)
+
+    # _internal/perf's DAG legs on this host (0.5 s a leg), the device
+    # legs' tensors on the card
+    records = run_microbenchmarks(duration=0.5, device="cuda")
+    bench = {r["benchmark"]: r["rate_per_s"] for r in records}
+    perf_devices = sorted({r["device"] for r in records if "device" in r})
+    med = statistics.median(tick_s)
+    res = {"same_process_same_object": same_object,
+           "channel_kinds": kinds, "edge_payload_mbytes": payload_bytes / 1e6,
+           "edge_dtypes": checks[0]["dtypes"], "edge_ticks": len(checks),
+           "edge_bit_equal": edge_ok, "edge_tick_ms": _percentiles(tick_s),
+           "edge_ticks_per_s": 1.0 / med,
+           "edge_mb_per_s": payload_bytes / 1e6 / med,
+           "device_object_fetch_mb_per_s": fetch_mb_per_s,
+           "broadcast_channel_kinds": bcast_kinds,
+           "broadcast_bit_equal": bcast_ok,
+           "gpu_while_actors_up": gpus_while_up,
+           "gpu_after_kill": gpus_after,
+           "perf_dag": {k: v for k, v in bench.items() if "dag" in k},
+           "perf_other": {k: v for k, v in bench.items() if "dag" not in k},
+           "perf_device_legs_on": perf_devices,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    ok = (same_object and edge_ok and bcast_ok and kinds["device"] == 1
+          and bcast_kinds["device"] == 2 and gpus_while_up == 0.0
+          and gpus_after == 1.0 and perf_devices == ["cuda"])
+    emit("dag_device", **res, ok=ok)
+    if not ok:
+        raise AssertionError("dag_device failed its checks")
+    return res
+
+
+class DagFeeder:
+    """dag_train_410m's feeder, a CPU actor that never imports torch: it
+    holds batch_410m's seeded batch as numpy and sends it every tick as
+    host arrays marked for the device framing (wrap_host_arrays), so the
+    learner rebuilds them on its card."""
+
+    def __init__(self, batch: dict):
+        self._batch = batch
+
+    def batch(self, tick: int) -> dict:
+        from ray_tpu_torch.dag.device_channel import wrap_host_arrays
+
+        return wrap_host_arrays(self._batch)[0]
+
+    def torch_loaded(self) -> bool:
+        return "torch" in sys.modules
+
+
+class DagLearner:
+    """dag_train_410m's learner, leased the GPU: train_410m's model and
+    step (config_410m, params from seed 0, adamw(3e-4)); `step` runs one
+    train step on the batch the edge rebuilt on the card and reports its
+    loss, the flash launches it made and its time."""
+
+    def __init__(self):
+        import gc
+
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("a GPU-leased actor sees no CUDA device")
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+
+        cfg = config_410m()
+        params = llama.init_params(cfg, seed=0)
+        self._step, self._state = build_train_step(
+            lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params)
+        params.clear()
+        gc.collect()
+
+    def step(self, batch: dict) -> dict:
+        import torch
+
+        from ray_tpu_torch.ops.cuda.flash_attention import (launches,
+                                                            reset_launches)
+
+        on_card = {k: (v.is_cuda, str(v.dtype)) for k, v in batch.items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        # the DAG loop runs on a thread of its own: grad mode is per thread
+        with torch.enable_grad():
+            self._state, aux = self._step(self._state, batch)
+            loss = aux["loss"].item()
+        return {"loss": loss, "launches": dict(launches),
+                "step_ms": (time.perf_counter() - t0) * 1e3,
+                "batch": on_card}
+
+    def gpu_free(self) -> float:
+        import ray_tpu_torch as rt
+
+        return rt.available_resources().get("GPU", 0.0)
+
+
+def phase_dag_train_410m(reference_losses: list, step_ms: float) -> dict:
+    """train_410m's step driven through a compiled DAG: InputNode ->
+    feeder.batch (a CPU actor, numpy over a with_tensor_transport() edge)
+    -> learner.step (an actor leased the GPU, on the CUDA tensors the edge
+    rebuilt). 2 + DAG_TRAIN_TICKS ticks: the losses equal train_410m's
+    in-process losses to 1e-6 relative, the learner counts 48/24/24 flash
+    launches a tick, the GPU reads 0 free while the learner lives and 1
+    after the teardown; tick ms beside the in-process step ms."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    cfg = config_410m()
+    batch = {k: v.cpu().numpy() for k, v in batch_410m(cfg.vocab_size).items()}
+    t_phase = time.perf_counter()
+    feeder = rt.remote(num_cpus=1, max_restarts=0)(DagFeeder).remote(batch)
+    learner = rt.remote(num_gpus=1, max_restarts=0)(DagLearner).remote()
+    with InputNode() as inp:
+        out = learner.step.bind(feeder.batch.bind(inp).with_tensor_transport())
+    dag = out.experimental_compile(max_inflight=2)
+    kinds = dict(dag.channel_kinds)
+    ticks, tick_s = [], []
+    try:
+        for i in range(2 + DAG_TRAIN_TICKS):
+            t0 = time.perf_counter()
+            ticks.append(dag.execute(i).get(timeout=900))
+            if i >= 2:
+                tick_s.append(time.perf_counter() - t0)
+        gpus_while_up = rt.get(learner.gpu_free.remote(), timeout=60)
+        feeder_torch = rt.get(feeder.torch_loaded.remote(), timeout=60)
+    finally:
+        dag.teardown()
+    rt.kill(learner)
+    rt.kill(feeder)
+    gpus_after = _gpus_free(rt, 1.0)
+    losses = [t["loss"] for t in ticks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, reference_losses)]
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    launches = {k: sum(t["launches"][k] for t in ticks[2:]) for k in want}
+    res = {"channel_kinds": kinds, "losses": losses,
+           "reference_losses": reference_losses[:len(losses)],
+           "rel_diff": rel, "tolerance": 1e-6,
+           "launches_per_tick": [t["launches"] for t in ticks],
+           "expected_per_tick": want, "batch_on_card": ticks[0]["batch"],
+           "tick_ms": [s * 1e3 for s in tick_s],
+           "learner_step_ms": [t["step_ms"] for t in ticks[2:]],
+           "in_process_step_ms": step_ms,
+           "tick_vs_in_process": statistics.median(tick_s) * 1e3 / step_ms,
+           "feeder_imported_torch": feeder_torch,
+           "gpu_while_learner_up": gpus_while_up,
+           "gpu_after_teardown": gpus_after,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    ok = (len(rel) == 2 + DAG_TRAIN_TICKS and max(rel) <= 1e-6
+          and all(t["launches"] == want for t in ticks)
+          and all(c for c, _ in ticks[0]["batch"].values())
+          and kinds["device"] == 1 and not feeder_torch
+          and gpus_while_up == 0.0 and gpus_after == 1.0)
+    emit("dag_train_410m", **res, ok=ok)
+    if not ok:
+        raise AssertionError("dag_train_410m failed its checks")
+    return launches
+
+
+def _disagg_app(f32: bool):
+    """disagg_llm_app("410m") with the serve phases' engine, its two
+    deployments (the same classes, the same bind graph) leased half the
+    card each and wrapped by `served` (f32: float32, TF32 off)."""
+    from ray_tpu_torch.serve.llm import disagg_llm_app
+
+    app = disagg_llm_app("410m", seed=0, **ENGINE_410M)
+    for node in app.walk():
+        cls = node.deployment.func_or_class
+        node.deployment = node.deployment.options(
+            ray_actor_options={"num_gpus": 0.5})
+        node.deployment.func_or_class = served(cls, f32=f32)
+    return app
+
+
+def phase_disagg_app_410m(runtime: dict, llm_app_run: dict) -> dict:
+    """disagg_llm_app's two pools of the 410m engine behind the Serve
+    plane, leased half the card each. f32 (TF32 off): the 3 parity
+    requests over HTTP SSE, one at a time, stream runtime_serve_410m's
+    in-process tokens; the GPU reads 0 free while the pools live and 1
+    after serve.delete. bf16: the 16 concurrent requests over HTTP SSE
+    (TTFT, TPOT, tokens/s beside serve_app_410m's llm_app over HTTP from
+    this run), each stream equal to llm_app's of the same request (both
+    cold: no prefix-store hit; the decode batch is max_batch fixed slots,
+    so a row's tokens do not depend on its neighbours); the handoffs the
+    decode pool read in that window, from its stats (edge kinds, bytes,
+    the call's and the read's ms as awaited there); the decode pool ran
+    no prefill; no flash kernel launched in either pool."""
+    import asyncio
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.handle import DeploymentHandle
+
+    vocab = llama.config_for("410m").vocab_size
+    shm = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    t_phase = time.perf_counter()
+    launches = {}
+    port = serve.start(http_port=0)
+    try:
+        gpus = _gpus_free(rt, 1.0)
+        handle = serve.run(_disagg_app(f32=True), name="disagg_f32")
+        prefill = DeploymentHandle("PrefillWorker", "disagg_f32")
+        probes = {"decode": _call(handle, "probe", 600),
+                  "prefill": _call(prefill, "probe", 600)}
+        gpus_while_up = rt.available_resources().get("GPU", 0.0)
+        via_http = _one_at_a_time(http_submit(port, "disagg_f32"),
+                                  parity_requests(vocab))
+        serve.delete("disagg_f32")
+        gpus_after = _gpus_free(rt, gpus)
+        parity = via_http == runtime["parity_streams_in_process"]
+
+        handle = serve.run(_disagg_app(f32=False), name="disagg")
+        prefill = DeploymentHandle("PrefillWorker", "disagg")
+        bf16_probe = _call(handle, "probe", 600)
+        _one_at_a_time(handle_submit(handle), [
+            ([1 + i] * m, 4) for i, m in enumerate((100, 400, 1000))])
+        for h in (handle, prefill):
+            _call(h, "reset_launches", 60)
+        requests = concurrent_requests(vocab)
+        stats0 = _call(handle, "stats", 60)
+        timed = asyncio.run(_stream_all(http_submit(port, "disagg"),
+                                        requests))
+        stats1 = _call(handle, "stats", 60)
+        for role, h in (("decode", handle), ("prefill", prefill)):
+            launches[role] = _call(h, "launches", 60)
+        serve.delete("disagg")
+    finally:
+        serve.shutdown()
+    complete = [len(s) for s in timed["streams"]] == [m for _, m in requests]
+    bf16_equal = [a == b for a, b in zip(timed["streams"],
+                                         llm_app_run["streams"])]
+    summed = {k: launches["decode"].get(k, 0) + launches["prefill"].get(k, 0)
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    delta = {k: stats1[k] - stats0[k] for k in (
+        "prefills", "kv_handoffs", "handoff_reads", "handoff_bytes",
+        "handoff_call_s", "handoff_read_s", "handoff_on_engine_device")}
+    edges = {k: n - stats0["handoff_edges"].get(k, 0)
+             for k, n in stats1["handoff_edges"].items()}
+    reads = delta["handoff_reads"]
+    handoffs = {"reads": reads, "edges": edges,
+                "on_card": delta["handoff_on_engine_device"],
+                "bytes_mean": delta["handoff_bytes"] / reads,
+                "call_ms_mean": delta["handoff_call_s"] * 1e3 / reads,
+                "read_ms_mean": delta["handoff_read_s"] * 1e3 / reads,
+                "read_mb_per_s": (delta["handoff_bytes"] / 1e6
+                                  / delta["handoff_read_s"]),
+                "ring_bytes_a_request": 2 * stats1["handoff_slot_bytes"]}
+    res = {"dev_shm": shm, "probes": probes, "bf16_probe": bf16_probe,
+           "gpu_before": gpus, "gpu_while_pools_up": gpus_while_up,
+           "gpu_after_delete": gpus_after, "parity_streams_equal": parity,
+           "parity_streams_http": via_http,
+           "concurrent_requests": len(requests), "complete": complete,
+           "bf16_streams_equal_llm_app": sum(bf16_equal),
+           "http": _latencies(timed),
+           "serve_app_llm_app_http": {k: v for k, v in llm_app_run.items()
+                                      if k != "streams"},
+           "decode_prefills": delta["prefills"],
+           "decode_kv_handoffs": delta["kv_handoffs"],
+           "handoffs": handoffs, "flash_launches": launches,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    ok = (parity and complete and gpus == 1.0 and gpus_while_up == 0.0
+          and gpus_after == 1.0
+          and all(p["cuda"] and p["dtype"] == "torch.float32"
+                  for p in probes.values())
+          and bf16_probe["dtype"] == "torch.bfloat16"
+          and len(bf16_equal) == len(requests) and all(bf16_equal)
+          and res["decode_prefills"] == 0
+          and res["decode_kv_handoffs"] == len(requests)
+          and reads == len(requests) and edges == {"shm": len(requests)}
+          and handoffs["on_card"] == len(requests)
+          and not any(summed.values()))
+    emit("disagg_app_410m", **res, ok=ok)
+    if not ok:
+        raise AssertionError("disagg_app_410m failed its checks")
+    return summed
+
+
+def phase_runtime(reference_losses: list, lora_step_ms: float,
+                  step_ms: float) -> dict:
+    """The runtime phases, serve_app_410m, the train runtime's phases and
+    the compiled-graph phases on one cluster, shut down on the way out
+    (its head and every worker stop with it). Returns the launch counts of
+    the Serve apps' paths, of the train task, of the clean TorchTrainer
+    LoRA fit, of the DAG-driven train ticks and of the disaggregated
+    pools."""
     import gc
 
     import torch
@@ -2651,15 +3086,21 @@ def phase_runtime(reference_losses: list, lora_step_ms: float) -> dict:
     try:
         phase_runtime_cluster()
         actor, serve_run = phase_runtime_serve_410m()
-        phase_runtime_device_objects(actor)
+        objects = phase_runtime_device_objects(actor)
         # the actor holds the node's one GPU until it dies: the Serve
         # phase's replica, then the train task, are leased that GPU next
         rt.kill(actor)
-        paths = phase_serve_app_410m(serve_run)
+        paths, llm_app_http = phase_serve_app_410m(serve_run)
         paths["runtime_train_410m"] = phase_runtime_train_410m(
             reference_losses)["launches"]
         # the train task has returned the GPU: the TrainWorkers lease it
         paths["trainer_lora_410m"] = phase_trainer(lora_step_ms)
+        # then the compiled-graph plane: each phase returns the GPU
+        phase_dag_device(objects["fetch_mb_per_s"])
+        paths["dag_train_410m"] = phase_dag_train_410m(reference_losses,
+                                                       step_ms)
+        paths["disagg_app_410m"] = phase_disagg_app_410m(serve_run,
+                                                         llm_app_http)
     finally:
         rt.shutdown()
     return paths
@@ -2687,7 +3128,7 @@ def main(argv: list[str]) -> int:
         phase_build()
         full = phase_train_410m(info["name"], STEPS_410M)
         lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
-        phase_runtime(full["losses"], lora_run["step_ms"])
+        phase_runtime(full["losses"], lora_run["step_ms"], full["step_ms"])
         return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama
@@ -2715,7 +3156,8 @@ def main(argv: list[str]) -> int:
              "lora_train_410m": lora_run["launches"],
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()
-    paths.update(phase_runtime(full["losses"], lora_run["step_ms"]))
+    paths.update(phase_runtime(full["losses"], lora_run["step_ms"],
+                               full["step_ms"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

@@ -40,11 +40,26 @@ and allreduce, and ``data.llm_corpus`` the token corpus ingest reads::
                        scaling_config=train.ScalingConfig(num_workers=1),
                        ).fit()
 
+Compiled graphs (``dag``): ``actor.method.bind(...)`` builds a DAG and
+``experimental_compile()`` runs it over pre-allocated channels between
+long-lived actor loops; an edge marked ``.with_tensor_transport()`` carries
+CUDA tensors (raw bytes, rebuilt on the consumer's card), and
+``serve.llm.disagg_llm_app`` hands a prompt's KV rows from a prefill pool
+to a decode pool over one::
+
+    from ray_tpu_torch.dag import InputNode
+    with InputNode() as inp:
+        dag = learner.step.bind(
+            feeder.batch.bind(inp).with_tensor_transport())
+    compiled = dag.experimental_compile()
+    compiled.execute(0).get()
+
 The package never imports jax. Its root, ``core``, ``_internal``,
-``util``, ``serve`` (all but ``serve.llm``), ``train`` and ``data`` never
-import torch either (the train recipes import it inside their bodies):
-workers boot with ``python -S`` in about 100 ms and pay torch's import
-only when a task uses it, so ``resolve_device`` is a lazy attribute.
+``util``, ``dag``, ``serve`` (all but ``serve.llm``), ``train`` and
+``data`` never import torch either (the train recipes import it inside
+their bodies): workers boot with ``python -S`` in about 100 ms and pay
+torch's import only when a task uses it, so ``resolve_device`` is a lazy
+attribute.
 """
 
 __version__ = "0.1.0"
@@ -70,8 +85,7 @@ from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
 
 # subpackages of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"dag": "3", "collective": "3", "rl": "7", "tune": "8",
-               "state_api": "2b"}
+_NOT_PORTED = {"collective": "6", "rl": "7", "tune": "8", "state_api": "2b"}
 
 
 def __getattr__(name):
@@ -81,7 +95,7 @@ def __getattr__(name):
 
         return resolve_device
     if name in ("util", "serve", "models", "ops", "parallel", "experimental",
-                "train", "data"):
+                "train", "data", "dag"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -18,6 +18,7 @@ arrays never pass through here, they ride the mesh as jax.Array).
 
 from __future__ import annotations
 
+import os
 import pickle
 import struct
 from typing import Any, Callable
@@ -169,6 +170,11 @@ def get_context() -> SerializationContext:
 # ------------------------------------------------- driver-local code shipping
 _by_value_registered: set[str] = set()
 _scanned_modules: set[str] = set()
+# the directory holding the ray_tpu_torch package: spawn.child_env puts it
+# on every worker's import path, so a module found there under its own name
+# is imported by the worker and ships by reference
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def ship_code_by_value(fn: Any) -> None:
@@ -187,6 +193,13 @@ def ship_code_by_value(fn: Any) -> None:
 
 
 def _is_driver_local(mod) -> bool:
+    """True for a module that workers cannot import by its name: not in
+    site/dist-packages, not in the interpreter's prefix, and not found in
+    the checkout under its name (as the JAX package's modules are, when a
+    test module that ships code imports them). Registering a module that
+    workers import by name would pickle its classes by value in this whole
+    process: another runtime driven from it would then hand its workers
+    copies of its own classes that their isinstance checks reject."""
     import sys
 
     mod_file = getattr(mod, "__file__", None)
@@ -194,6 +207,10 @@ def _is_driver_local(mod) -> bool:
         return False
     path = mod_file.replace("\\", "/")
     if "/site-packages/" in path or "/dist-packages/" in path:
+        return False
+    base = os.path.join(_CHECKOUT, *mod.__name__.split("."))
+    if os.path.abspath(mod_file) in (base + ".py",
+                                     os.path.join(base, "__init__.py")):
         return False
     return not path.startswith(getattr(sys, "base_prefix", "\0"))
 

@@ -32,10 +32,6 @@ def _make_resources(num_cpus=None, num_gpus=None, memory=None,
         custom=dict(resources or {}))
 
 
-_DAG_NOT_PORTED = ("compiled DAGs (.bind()) are not ported yet: the dag "
-                   "package arrives with the device plane, ROADMAP.md item 3")
-
-
 class RemoteFunction:
     def __init__(self, fn, **opts):
         self._fn = fn
@@ -91,7 +87,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Build a DAG task node instead of submitting."""
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag.node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
 
 class ActorMethod:
@@ -136,7 +134,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Build a DAG node instead of submitting (ref: dag/dag_node.py)."""
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag.node import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:

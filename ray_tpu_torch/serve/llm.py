@@ -21,10 +21,12 @@ base weight tensors.
 ``llm_app`` and ``lora_llm_app`` deploy ``LlamaService`` and
 ``MultiplexedLoraService`` as Serve applications (``serve.run``); the
 replica hosting one builds its engine on the card of its process.
+``disagg_llm_app`` splits serving into a prefill pool (``PrefillWorker``)
+and a decode pool (``DecodeLlamaService``, the ingress): each request's KV
+rows cross from one to the other as one tick of a device edge
+(``dag/device_channel.py``).
 
-Not here: the disaggregated ``PrefillWorker`` / ``DecodeLlamaService`` /
-``disagg_llm_app`` over device channels (ROADMAP item 3), and tensor
-parallelism (item 6).
+Not here: tensor parallelism (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -863,3 +865,234 @@ def lora_llm_app(preset: str = "debug", *, num_replicas: int = 1,
     return dep.bind(preset,
                     max_adapters_per_replica=max_adapters_per_replica,
                     **engine_kw)
+
+
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated prefill/decode serving
+# ---------------------------------------------------------------------------
+
+PREFILL_REPLICAS_ENV = "RAYT_SERVE_PREFILL_REPLICAS"
+DECODE_REPLICAS_ENV = "RAYT_SERVE_DECODE_REPLICAS"
+
+
+def _pool_size(env: str, default: int) -> int:
+    import os
+
+    try:
+        return max(1, int(os.environ.get(env, default)))
+    except (TypeError, ValueError):
+        return default
+
+
+def _edge_kind(channel, spec) -> str:
+    """Classify a KV-handoff edge for accounting: ``device`` when both
+    sides share one process (same-process handoff, the tensors never
+    leave the card), ``dcn`` when the transport spec rides the
+    cross-host DCN store, ``shm`` for the same-host shared-memory ring."""
+    from ray_tpu_torch.dag.device_channel import DeviceChannel
+
+    if isinstance(channel, DeviceChannel):
+        return "device"
+    try:
+        from ray_tpu_torch.dag.dcn_channel import DcnChannelSpec
+
+        if isinstance(getattr(spec, "inner", None), DcnChannelSpec):
+            return "dcn"
+    except Exception:
+        pass
+    return "shm"
+
+
+class PrefillWorker:
+    """Prefill half of a disaggregated llm deployment (deploy via
+    ``disagg_llm_app``). One call = one prompt's prefill: run it
+    (chunked, prefix-cache included), then hand the finished KV rows to
+    the caller's decode pool as ONE device-channel tick — raw host
+    bytes over the framing in dag/device_channel.py, never a generic
+    pickle of the tensors.
+
+    Payload: ``{"tokens": [ids], "temperature": float,
+    "chan": DeviceChannelSpec}`` — the decode side owns the channel and
+    is already blocked on the read. Returns a handoff summary
+    ``{"bytes", "edge_kind", "n_arrays", "bucket", "start"}``.
+    """
+
+    def __init__(self, preset: str = "debug", **engine_kw):
+        self.engine = LLMEngine(preset, **engine_kw)
+
+    async def __call__(self, payload: dict) -> dict:
+        from ray_tpu_torch.dag.dcn_channel import attach_channel
+        from ray_tpu_torch.dag.device_channel import tree_nbytes
+
+        spec = payload["chan"]
+        tokens = [int(t) for t in payload["tokens"]]
+        handoff = await self.engine.prefill_only(
+            tokens, temperature=float(payload.get("temperature", 0.0)))
+        nbytes = int(tree_nbytes({"k": handoff["k"], "v": handoff["v"]}))
+        loop = asyncio.get_running_loop()
+        ch = await loop.run_in_executor(None, attach_channel, spec)
+        kind = _edge_kind(ch, spec)
+        try:
+            # one tick, written from an executor thread (the ring may
+            # block until the decode side frees a slot)
+            await loop.run_in_executor(
+                None, lambda: ch.write(dict(handoff), timeout=30.0))
+            n_arrays = int(getattr(ch, "device_arrays", 0))
+        finally:
+            ch.close()
+        try:
+            from ray_tpu_torch.serve.request_context import current_request_obs
+
+            obs = current_request_obs()
+        except Exception:
+            obs = None
+        if obs is not None:
+            obs["pool"] = "prefill"
+            obs["kv_handoff_bytes"] = nbytes
+            obs["kv_handoff_edge"] = kind
+        return {"bytes": nbytes, "edge_kind": kind,
+                "n_arrays": n_arrays, "bucket": int(handoff["bucket"]),
+                "start": int(handoff["start"])}
+
+    def stats(self) -> dict:
+        return self.engine.stats()
+
+
+class DecodeLlamaService:
+    """Decode half of a disaggregated llm deployment: same request
+    payload as LlamaService, but the prompt never runs here. Per
+    request it creates a private shm ring, asks the prefill pool to
+    fill it (the request id and trace carrier ride the composed handle
+    call, so both pools' partial records coalesce into ONE waterfall),
+    reads the KV rows as one tick, and decodes from them — long
+    prefills can no longer dip this pool's decode-batch occupancy.
+    """
+
+    def __init__(self, prefill, preset: str = "debug", **engine_kw):
+        self.engine = LLMEngine(preset, **engine_kw)
+        self._prefill = prefill  # DeploymentHandle (composed app node)
+        cfg = self.engine.cfg
+        bucket = max(self.engine.prompt_buckets)
+        # one tick = one prompt's k+v rows (+ pickle framing): assume
+        # <=4-byte elements and pad 25% + 64KiB so the slot always fits
+        kv = 2 * cfg.n_layers * bucket * cfg.n_kv_heads * cfg.head_dim * 4
+        self._slot_size = kv + kv // 4 + (1 << 16)
+        # the handoffs this pool read, for stats(): the call's wait
+        # (the prefill pool's queue, its prefill and its write) and the
+        # read's (the copy out of the ring, the rebuild on this engine's
+        # device), both as awaited here, so they are what TTFT pays
+        self._handoffs = {"reads": 0, "bytes": 0, "call_s": 0.0,
+                          "read_s": 0.0, "on_engine_device": 0, "edges": {}}
+
+    def _request_context(self, obs) -> Optional[dict]:
+        if not obs or not obs.get("request_id"):
+            return None
+        return {"request_id": obs["request_id"], "trace": obs.get("trace")}
+
+    async def __call__(self, payload: dict):
+        from ray_tpu_torch.dag.channel import ShmChannel
+        from ray_tpu_torch.dag.device_channel import (DeviceChannelSpec,
+                                                      DeviceTransportChannel)
+
+        tokens = payload["tokens"]
+        if isinstance(tokens, str):  # raw byte-level "tokenizer"
+            tokens = [b % self.engine.cfg.vocab_size
+                      for b in tokens.encode()]
+        try:
+            from ray_tpu_torch.serve.request_context import current_request_obs
+
+            obs = current_request_obs()
+        except Exception:
+            obs = None
+        loop = asyncio.get_running_loop()
+        # per-request ring: the shm channel is strictly SPSC, so each
+        # handoff gets its own (decode owns it and unlinks on close)
+        shm = await loop.run_in_executor(
+            None, lambda: ShmChannel.create(
+                slot_size=self._slot_size, n_slots=2))
+        spec = DeviceChannelSpec(name=shm.spec.name, inner=shm.spec)
+        ch = DeviceTransportChannel(shm, spec)
+        try:
+            handle = self._prefill
+            rctx = self._request_context(obs)
+            if rctx is not None:
+                handle = handle.options(request_context=rctx)
+            req = {"tokens": tokens, "chan": spec,
+                   "temperature": float(payload.get("temperature", 0.0))}
+            # summary first (it surfaces prefill errors with their real
+            # traceback), then the tick — which is already in the ring,
+            # the prefill side writes it before returning
+            t0 = time.perf_counter()
+            summary = await loop.run_in_executor(
+                None, lambda: handle.remote(req).result(timeout=120.0))
+            t1 = time.perf_counter()
+            tick = await loop.run_in_executor(
+                None, lambda: ch.read(timeout=30.0))
+            t2 = time.perf_counter()
+        finally:
+            ch.close()
+        self._count_handoff(summary, tick, t1 - t0, t2 - t1)
+        if obs is not None:
+            # kv_handoff_* stays OFF this side's record: the prefill
+            # partial carries it, and the GCS derives the bytes counter
+            # at partial ingest — a second stamp would double-count
+            obs["pool"] = "decode"
+        async for tok in self.engine.generate_prefilled(
+                tokens,
+                {k: tick[k] for k in ("k", "v", "first", "bucket",
+                                      "start")},
+                max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                temperature=float(payload.get("temperature", 0.0))):
+            yield {"token": int(tok)}
+
+    def _count_handoff(self, summary: dict, tick: dict, call_s: float,
+                       read_s: float):
+        h = self._handoffs
+        h["reads"] += 1
+        h["bytes"] += int(summary["bytes"])
+        h["call_s"] += call_s
+        h["read_s"] += read_s
+        kind = summary["edge_kind"]
+        h["edges"][kind] = h["edges"].get(kind, 0) + 1
+        h["on_engine_device"] += all(
+            tick[k].device.type == self.engine.device.type
+            for k in ("k", "v"))
+
+    def stats(self) -> dict:
+        """The engine's counters, and the handoffs read here: count,
+        bytes, seconds awaited in the call and in the read, reads whose
+        rows landed on the engine's device, reads by edge kind, and the
+        ring's slot bytes (2 slots a request in flight)."""
+        h = self._handoffs
+        return {**self.engine.stats(),
+                **{f"handoff_{k}": v for k, v in h.items() if k != "edges"},
+                "handoff_edges": dict(h["edges"]),
+                "handoff_slot_bytes": self._slot_size}
+
+
+def disagg_llm_app(preset: str = "debug", *,
+                   prefill_replicas: int | None = None,
+                   decode_replicas: int | None = None,
+                   max_ongoing_requests: int = 64, **engine_kw):
+    """Serve application with disaggregated prefill/decode pools: the
+    decode pool is the ingress; each request's prefill runs in the
+    prefill pool and hands its KV rows over a device-channel edge. Pool
+    sizes default from RAYT_SERVE_PREFILL_REPLICAS /
+    RAYT_SERVE_DECODE_REPLICAS (1 each). Both pools build identical
+    weights (same preset + seed), so KV rows graft across them."""
+    from ray_tpu_torch.serve.deployment import deployment
+
+    if prefill_replicas is None:
+        prefill_replicas = _pool_size(PREFILL_REPLICAS_ENV, 1)
+    if decode_replicas is None:
+        decode_replicas = _pool_size(DECODE_REPLICAS_ENV, 1)
+    prefill_dep = deployment(
+        PrefillWorker, num_replicas=prefill_replicas,
+        max_ongoing_requests=max_ongoing_requests)
+    decode_dep = deployment(
+        DecodeLlamaService, num_replicas=decode_replicas,
+        max_ongoing_requests=max_ongoing_requests)
+    return decode_dep.bind(prefill_dep.bind(preset, **engine_kw),
+                           preset, **engine_kw)

@@ -2,7 +2,7 @@
 collectives (ref analog: python/ray/util/). ``util.collective`` carries
 rendezvous, barriers and numpy allreduce/allgather/broadcast between
 processes over TCP; its device tier (``backend="nccl"``) is ROADMAP.md
-item 3."""
+item 6."""
 
 from __future__ import annotations
 

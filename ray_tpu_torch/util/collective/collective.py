@@ -3,7 +3,7 @@ python/ray/util/collective/collective.py:120,258,423,472,531).
 
 Two planes, per SURVEY.md §2.5:
   * **Device plane** — NCCL collectives between cards
-    (``torch.distributed``); not ported yet (ROADMAP.md item 3), so
+    (``torch.distributed``); not ported yet (ROADMAP.md item 6), so
     ``backend="nccl"`` raises.
   * **Host plane** — this module (the port of ray_tpu/util/collective):
     rendezvous + CPU collectives between separate processes
@@ -255,7 +255,7 @@ def _check_backend(backend: str) -> None:
     if backend == "nccl":
         raise NotImplementedError(
             "backend='nccl' (collectives between cards) is not ported yet "
-            "(ROADMAP.md item 3); the host tier takes 'tcp', 'gloo' or "
+            "(ROADMAP.md item 6); the host tier takes 'tcp', 'gloo' or "
             "'auto'")
     if backend not in ("tcp", "gloo", "auto"):
         raise ValueError(f"unsupported backend {backend!r}; the host tier "

@@ -5,7 +5,7 @@ Ref analog: the reference's Gloo CPU collective group
 (python/ray/util/collective/collective_group/gloo_collective_group.py) and
 the TCPStore rendezvous used by torch process groups
 (train/torch/config.py:115). The *device* data plane (NCCL collectives
-between cards) is not ported yet (ROADMAP.md item 3); this store is the
+between cards) is not ported yet (ROADMAP.md item 6); this store is the
 host-side control/data plane — small arrays, rendezvous payloads (the
 NCCLUniqueId analog), barriers between workers. A copy of
 ray_tpu/util/collective/store.py.

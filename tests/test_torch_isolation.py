@@ -38,7 +38,7 @@ def test_package_imports_no_jax_optax_or_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, bad = int(out[0]), out[1:]
-    assert n_modules >= 79
+    assert n_modules >= 104
     assert bad == [], f"ray_tpu_torch pulled in {bad}"
 
 
@@ -58,11 +58,13 @@ def test_chip_smoke_imports_no_jax_optax_or_ray_tpu():
 
 
 def _entry_points():
+    from ray_tpu_torch._internal import perf
     from ray_tpu_torch.models import llama, lora, mlp
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.ops import moe
     from ray_tpu_torch.parallel.spmd import adamw, build_train_step
-    from ray_tpu_torch.serve.llm import LLMEngine, MultiplexedLoraService
+    from ray_tpu_torch.serve.llm import (DecodeLlamaService, LLMEngine,
+                                         MultiplexedLoraService, PrefillWorker)
 
     cfg = llama.config_for("debug")
     return {
@@ -72,6 +74,8 @@ def _entry_points():
         "init_lora_params": lambda: lora.init_lora_params(
             cfg, lora.LoraConfig()),
         "MultiplexedLoraService": lambda: MultiplexedLoraService("debug"),
+        "PrefillWorker": lambda: PrefillWorker("debug"),
+        "DecodeLlamaService": lambda: DecodeLlamaService(None, "debug"),
         "init_moe_params": lambda: moe.init_moe_params(8, 16,
                                                        moe.MoEConfig()),
         "mlp_init": lambda: mlp.mlp_init(mlp.MLPConfig()),
@@ -79,6 +83,7 @@ def _entry_points():
         "build_train_step": lambda: build_train_step(
             lambda p, b: (None, {}), adamw(1e-3), {}),
         "resolve_device": lambda: ray_tpu_torch.resolve_device(None),
+        "run_microbenchmarks": lambda: perf.run_microbenchmarks(0.01),
     }
 
 
@@ -87,7 +92,9 @@ def _entry_points():
                                   "init_kv_cache", "LLMEngine",
                                   "init_lora_params",
                                   "MultiplexedLoraService",
-                                  "init_moe_params", "mlp_init"])
+                                  "PrefillWorker", "DecodeLlamaService",
+                                  "init_moe_params", "mlp_init",
+                                  "run_microbenchmarks"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -184,7 +191,13 @@ def test_every_module_is_walked():
             "ray_tpu_torch.train.controller", "ray_tpu_torch.train.ingest",
             "ray_tpu_torch.train.recipes", "ray_tpu_torch.train.session",
             "ray_tpu_torch.train.telemetry", "ray_tpu_torch.train.trainer",
-            "ray_tpu_torch.train.worker_group"} <= names
+            "ray_tpu_torch.train.worker_group", "ray_tpu_torch.dag",
+            "ray_tpu_torch.dag.node", "ray_tpu_torch.dag.channel",
+            "ray_tpu_torch.dag.device_channel",
+            "ray_tpu_torch.dag.dcn_channel", "ray_tpu_torch.dag.collective",
+            "ray_tpu_torch.dag.compiled", "ray_tpu_torch.dag.channel_exec",
+            "ray_tpu_torch.dag.recovery",
+            "ray_tpu_torch._internal.perf"} <= names
 
 
 _TRAIN_IMPORT = """
@@ -211,6 +224,46 @@ def test_train_collective_and_corpus_import_no_jax_and_no_torch():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.strip()
     assert out == "[]"
+
+
+_DAG_IMPORT = """
+import sys
+import ray_tpu_torch.dag
+import ray_tpu_torch._internal.perf
+from ray_tpu_torch.dag import (channel, channel_exec, collective, compiled,
+                               dcn_channel, device_channel, node, recovery)
+from ray_tpu_torch.dag.collective import client_fingerprint
+client_fingerprint()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu")))
+"""
+
+
+def test_dag_plane_imports_no_torch():
+    """ray_tpu_torch.dag (every module) and _internal.perf import neither
+    torch nor jax nor ray_tpu, and reading a process's device view for a
+    DAG collective does not import torch: a worker running a DAG loop over
+    host values boots and ticks without it (tensor edges import it when a
+    tensor is rebuilt)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _DAG_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]"
+
+
+def test_disagg_serving_lives_in_serve_llm():
+    """The disaggregated serving classes sit in serve.llm with the engine
+    (the one serve module that imports torch), under the reference's
+    names, and the pools' sizes read the reference's variables."""
+    from ray_tpu_torch.serve import llm
+
+    for name in ("PrefillWorker", "DecodeLlamaService", "disagg_llm_app",
+                 "_pool_size", "_edge_kind"):
+        assert callable(getattr(llm, name)), name
+    assert (llm.PREFILL_REPLICAS_ENV, llm.DECODE_REPLICAS_ENV) == (
+        "RAYT_SERVE_PREFILL_REPLICAS", "RAYT_SERVE_DECODE_REPLICAS")
 
 
 _SERVE_IMPORT = """

@@ -287,7 +287,7 @@ def test_ingest_on_a_device_yields_the_numpy_stream_as_tensors(tmp_path):
 
 # ------------------------------------------------------- host collectives
 def test_collective_backends_and_tensor_arguments():
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tcoll.init_collective_group(2, 0, backend="nccl")
     with pytest.raises(ValueError, match="unsupported backend"):
         tcoll.init_collective_group(2, 0, backend="mpi")

@@ -42,9 +42,15 @@ TRAIN_REWRITES = (
     (r"\bJaxTrainer\b", "TorchTrainer"),
     (r"\bScalingConfig\(", "ScalingConfig(use_gpu=False, "),
 )
+# test_dag_observability imports the bare package name and calls it
+# (``import ray_tpu; ray_tpu.init(...)``): the port, under that name
+DAG_OBS_REWRITES = (
+    (r"^(\s*)import ray_tpu_torch$", r"\1import ray_tpu_torch as ray_tpu"),
+)
 FILE_REWRITES = {"test_train": TRAIN_REWRITES,
                  "test_ingest_train": TRAIN_REWRITES,
-                 "test_train_observability": TRAIN_REWRITES}
+                 "test_train_observability": TRAIN_REWRITES,
+                 "test_dag_observability": DAG_OBS_REWRITES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +65,7 @@ class Deselect:
 
 _JAX_BODY = "its body runs jax"
 _TWINS = "tests/test_torch_train.py::"
+_DAG_TWINS = "tests/test_torch_dag_device.py::"
 DESELECT = {
     "test_train": {
         "test_save_load_pytree": Deselect(
@@ -88,6 +95,44 @@ DESELECT = {
             "reads state_api", "2b", None),
         "test_rl_learner_emits_step_waterfall": Deselect(
             "drives the RL learner (ray_tpu.rl)", "7", None),
+    },
+    "test_dag_dcn": {
+        "test_mixed_kind_graph_with_allreduce_fast_path": Deselect(
+            _JAX_BODY + " (jnp device-edge payloads)", None,
+            _DAG_TWINS
+            + "test_mixed_kind_graph_with_allreduce_fast_path_torch"),
+    },
+    "test_dag_observability": {
+        "test_dag_record_lifecycle": Deselect(
+            "reads state_api", "2b", None),
+        "test_stall_watchdog_e2e_dead_runner": Deselect(
+            "reads state_api and the rayt CLI", "2b", None),
+        "test_dag_state_disabled_no_records": Deselect(
+            "reads state_api", "2b", None),
+    },
+    "test_device_objects": {
+        "test_put_device_get_same_process_zero_copy": Deselect(
+            _JAX_BODY + " (a jnp array)", None,
+            _DAG_TWINS + "test_put_device_get_same_process_zero_copy_torch"),
+        "test_device_ref_as_task_arg": Deselect(
+            _JAX_BODY + " (a jnp array, a jax.Array check in the task)",
+            None, _DAG_TWINS + "test_device_ref_as_task_arg_torch"),
+        "test_device_return_stays_in_actor": Deselect(
+            _JAX_BODY + " (the actor returns a jnp array)", None,
+            _DAG_TWINS + "test_device_return_stays_in_actor_torch"),
+        "test_compiled_dag_device_edge": Deselect(
+            _JAX_BODY + " (the stage returns a jnp array)", None,
+            _DAG_TWINS + "test_compiled_dag_device_edge_torch"),
+        "test_device_object_free_releases_holder_memory": Deselect(
+            _JAX_BODY + " (the actor returns a jnp array)", None,
+            _DAG_TWINS
+            + "test_device_object_free_releases_holder_memory_torch"),
+        "test_sharded_array_device_transfer": Deselect(
+            _JAX_BODY + " (an array sharded over a 2-device mesh)", "6",
+            None),
+        "test_device_object_lost_when_holder_dies": Deselect(
+            _JAX_BODY + " (the actor returns a jnp array)", None,
+            _DAG_TWINS + "test_device_object_lost_when_holder_dies_torch"),
     },
 }
 
@@ -182,16 +227,19 @@ def check_deselects(name: str) -> dict:
     return entries
 
 
-def run_repointed(name: str, n_tests: int, tmp_path, timeout: float) -> None:
+def run_repointed(name: str, n_tests: int, tmp_path, timeout: float,
+                  split: tuple = (), only: str | None = None) -> None:
     """Run tests/<name>.py re-pointed at the port in a pytest subprocess
-    (at most `timeout` s), its DESELECT entries left out, and assert that
-    all `n_tests` selected tests passed with no import of jax or
-    ray_tpu."""
+    (at most `timeout` s), its DESELECT entries and the tests in `split`
+    (each run as an entry of its own) left out, or only the test `only`,
+    and assert that all `n_tests` selected tests passed with no import of
+    jax or ray_tpu."""
     with open(os.path.join(ROOT, "tests", f"{name}.py")) as f:
         copy = repoint(f.read(), FILE_REWRITES.get(name, ()))
     assert "ray_tpu_torch" in copy
     deselect = [f"--deselect={name}.py::{test}"
-                for test in check_deselects(name)]
+                for test in (*check_deselects(name), *split)]
+    target = str(tmp_path) if only is None else f"{name}.py::{only}"
     (tmp_path / f"{name}.py").write_text(copy)
     (tmp_path / "conftest.py").write_text(CONFTEST.format(root=ROOT))
     report, xml = tmp_path / "imports.json", tmp_path / "junit.xml"
@@ -201,7 +249,7 @@ def run_repointed(name: str, n_tests: int, tmp_path, timeout: float) -> None:
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-p", "no:xdist", "-p", "no:randomly", f"--junitxml={xml}",
          f"--rootdir={tmp_path}", f"--confcutdir={tmp_path}",
-         *deselect, str(tmp_path)],
+         *deselect, target],
         cwd=tmp_path, env=env, capture_output=True, text=True,
         timeout=timeout)
     tail = (proc.stdout + proc.stderr)[-4000:]

@@ -109,6 +109,22 @@ caught, so any failure exits non-zero):
    the read's ms); no prefill in the decode pool and no flash kernel in
    either. Each holds the GPU's
    reading at 0 while its actors or pools live and 1 after.
+14. rl_parity, rl_ppo_cartpole, rl_impala_cartpole, rl_impala_catch_cnn,
+   rl_offpolicy, rl_multi_agent, on that cluster once the GPU is free
+   again: RL with its learners on the card and its env runners on the
+   CPU. rl_parity: each algorithm's update (PPO, IMPALA and APPO with the
+   MLP and the CNN, DQN, SAC with the same normal draws) on the card
+   against the CPU in f32 with TF32 off for matmul and cuDNN, to 1e-4
+   relative L2 per leaf, with the update's ms on each. Then the learning
+   runs of the reference's tests, each against its gate: PPO on CartPole
+   (weights over device input edges), IMPALA on CartPole (batches over
+   device edges, arriving as CUDA tensors; the test's env-steps/s and
+   updates/s floors), IMPALA's CNN on Catch, DQN and SAC with their
+   learners in this process, and two-policy PPO with each learner leased
+   half the GPU. Each reads the GPU free at 0 while an actor learner
+   lives and 1 after stop(), checks that no env runner has a CUDA context
+   after reading its weights, and counts the flash launches of its
+   processes (0: RL runs no attention).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -132,7 +148,11 @@ last rate's window and the others under "sweep".
 
 runs device, build, train_410m (for its losses and step time),
 lora_train_410m (for its step time) and the runtime phases (serve_app_410m,
-the trainer and the compiled-graph phases among them) alone.
+the trainer, the compiled-graph and the RL phases among them) alone.
+
+    python3 chip_smoke.py --rl
+
+runs device, build and the RL phases alone, on a cluster of their own.
 """
 
 from __future__ import annotations
@@ -3067,6 +3087,548 @@ def phase_disagg_app_410m(runtime: dict, llm_app_run: dict) -> dict:
     return summed
 
 
+# ------------------------------------------------------------------- RL
+RL_PHASES = ("rl_parity", "rl_ppo_cartpole", "rl_impala_cartpole",
+             "rl_impala_catch_cnn", "rl_offpolicy", "rl_multi_agent")
+RL_TIMED_CALLS = 3      # timed updates per device, after one warm-up
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """f32 matmuls and convolutions as f32 (cuDNN's convolutions default to
+    TF32), restored on the way out."""
+    import torch
+
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def _rel_tree(a, b) -> float:
+    """The largest per-leaf relative L2 distance of two params trees."""
+    from ray_tpu_torch.rl.module import tensor_leaves
+
+    worst = 0.0
+    for x, y in zip(tensor_leaves(a), tensor_leaves(b)):
+        x, y = x.detach().double().cpu(), y.detach().double().cpu()
+        worst = max(worst, float((x - y).norm() / max(float(y.norm()),
+                                                      1e-30)))
+    return worst
+
+
+def _timed_ms(fn) -> float:
+    """Median wall ms of RL_TIMED_CALLS calls of `fn` (each returns host
+    floats, so it waits for the device), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(RL_TIMED_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rl_ppo_batch(rng, n: int) -> dict:
+    """A seeded flat PPO batch of n CartPole timesteps."""
+    import numpy as np
+
+    return {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, n).astype(np.int32),
+            "logp_old": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+            "advantages": rng.normal(size=n).astype(np.float32),
+            "returns": rng.normal(size=n).astype(np.float32) * 10}
+
+
+def rl_impala_batch(rng, T: int, B: int, obs_shape: tuple) -> dict:
+    """A seeded IMPALA batch [T, B, ...] as an aggregator releases it."""
+    import numpy as np
+
+    dones = rng.random((T, B)) < 0.05
+    return {"obs": rng.random((T, B) + obs_shape).astype(np.float32),
+            "last_obs": rng.random((B,) + obs_shape).astype(np.float32),
+            "actions": rng.integers(0, 2, (T, B)).astype(np.int32),
+            "logp": np.log(rng.uniform(0.3, 0.7, (T, B))).astype(np.float32),
+            "rewards": rng.normal(size=(T, B)).astype(np.float32),
+            "dones": dones,
+            "trunc_values": np.zeros((T, B), np.float32)}
+
+
+def rl_replay_batch(rng, obs: int, B: int, continuous: int = 0) -> dict:
+    import numpy as np
+
+    actions = (rng.uniform(-1, 1, (B, continuous)).astype(np.float32)
+               if continuous else rng.integers(0, 2, B).astype(np.int32))
+    return {"obs": rng.normal(size=(B, obs)).astype(np.float32),
+            "actions": actions,
+            "rewards": rng.normal(size=B).astype(np.float32),
+            "next_obs": rng.normal(size=(B, obs)).astype(np.float32),
+            "dones": rng.random(B) < 0.1}
+
+
+def phase_rl_parity() -> dict:
+    """Each RL update on the card against the same update on the CPU, in
+    f32 with TF32 off for matmul and cuDNN: the same init (drawn on the
+    CPU from the same seed), the same seeded batch, two updates each; the
+    params agree to 1e-4 relative L2 per leaf. The shapes are the learning
+    phases': PPO 2048 timesteps in minibatches of 256 for 6 epochs; IMPALA
+    and APPO [64, 8] CartPole and [32, 32, 10, 10, 1] Catch batches; DQN
+    and SAC minibatches of 128 (SAC with the same normal draws on both).
+    Also the update's wall ms on each device (the median of 3 timed calls
+    after those two)."""
+    import cloudpickle
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import dqn, impala, learner, module, sac
+
+    t0 = time.perf_counter()
+    rows = {}
+
+    def compare(name, make, run, tol=1e-4):
+        card, cpu = make("cuda"), make("cpu")
+        for i in range(2):
+            run(card, i)
+            run(cpu, i)
+        rel = _rel_tree(card.params, cpu.params)
+        rows[name] = {"rel_l2": rel, "tolerance": tol,
+                      "card_ms": _timed_ms(lambda: run(card, 0)),
+                      "cpu_ms": _timed_ms(lambda: run(cpu, 0))}
+
+    with tf32_off():
+        rng = np.random.default_rng(0)
+        ppo_batch = rl_ppo_batch(rng, 2048)
+        lcfg = learner.PPOLearnerConfig(lr=1e-3, entropy_coeff=0.0,
+                                        minibatch_size=256, num_epochs=6)
+        mlp = module.MLPModuleConfig(4, 2)
+        compare("ppo", lambda dev: learner.TorchLearner(
+            cloudpickle.dumps(mlp), cloudpickle.dumps(lcfg), 3,
+            device=None if dev == "cuda" else "cpu"),
+            lambda lr, i: lr.update(dict(ppo_batch)))
+        for arch, appo in (("mlp", False), ("mlp", True), ("cnn", False),
+                           ("cnn", True)):
+            if arch == "mlp":
+                mod, batch = mlp, rl_impala_batch(rng, 64, 8, (4,))
+            else:
+                mod = module.CNNModuleConfig((10, 10, 1), 3)
+                batch = rl_impala_batch(rng, 32, 32, (10, 10, 1))
+            compare(f"{'appo' if appo else 'impala'}_{arch}",
+                    lambda dev, mod=mod, appo=appo: impala.IMPALALearner(
+                        cloudpickle.dumps(mod), cloudpickle.dumps(
+                            impala.IMPALAConfig(
+                                use_appo_loss=appo, lr=3e-3,
+                                num_gpus_per_learner=int(dev == "cuda")))),
+                    lambda lr, i, batch=batch: lr.update(dict(batch)))
+        dbatch = rl_replay_batch(rng, 4, 128)
+        compare("dqn", lambda dev: dqn.DQNLearner(
+            mlp, dqn.DQNConfig(target_update_freq=50), dev),
+            lambda lr, i: float(lr.update(lr.to_device(dbatch))))
+        sbatch = rl_replay_batch(rng, 1, 128, continuous=1)
+        noise = [(rng.normal(size=(128, 1)), rng.normal(size=(128, 1)))
+                 for _ in range(2)]
+        ccfg = module.ContinuousModuleConfig(1, 1, hidden=(32, 32))
+        compare("sac", lambda dev: sac.SACLearner(
+            ccfg, sac.SACConfig(actor_lr=3e-3, critic_lr=3e-3,
+                                alpha_lr=3e-3, initial_alpha=0.2), dev),
+            lambda lr, i: {k: float(v) for k, v in lr.update(
+                lr.to_device(sbatch), noise=noise[i]).items()})
+        torch.cuda.synchronize()
+    ok = all(r["rel_l2"] <= r["tolerance"] for r in rows.values())
+    emit("rl_parity", updates=rows, phase_s=time.perf_counter() - t0,
+         card=card_line(), ok=ok)
+    if not ok:
+        raise AssertionError("rl_parity failed its checks")
+    return rows
+
+
+def _runner_cuda(runners) -> list:
+    """Each env runner's answer to "has this process initialised CUDA"."""
+    return runners.foreach(lambda a: a.cuda_initialized.remote())
+
+
+def _rl_flash_launches() -> dict:
+    from ray_tpu_torch.ops.cuda.flash_attention import launches
+
+    return dict(launches)
+
+
+def _launch_sum(by_process: dict) -> dict:
+    """Flash launches of a path: its processes' counts added up."""
+    out: dict = {}
+    for counts in by_process.values():
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _flash_launches_of(actor_self) -> dict:
+    """Run in an actor's process (``__rayt_apply__``): its flash counts."""
+    return _rl_flash_launches()
+
+
+def _actor_flash_launches(rt, actor) -> dict:
+    from ray_tpu_torch.api import ActorMethod
+
+    return rt.get(ActorMethod(actor, "__rayt_apply__").remote(
+        _flash_launches_of), timeout=60)
+
+
+def _input_edge_bytes(dag) -> dict:
+    """Writes and bytes of a compiled DAG's device input edges (the weight
+    broadcasts), from the driver's channel stats."""
+    chans = list(getattr(dag, "_device_input_channels", []))
+    writes = sum(ch.stats.writes for ch in chans)
+    nbytes = sum(ch.stats.bytes_written for ch in chans)
+    return {"edges": len(chans), "writes": writes, "bytes": nbytes,
+            "bytes_per_write": nbytes / writes if writes else 0.0,
+            "device_arrays": sum(ch.device_arrays for ch in chans)}
+
+
+def _tree_nbytes(tree) -> int:
+    import numpy as np
+
+    from ray_tpu_torch.rl.impala import _tree_leaves
+
+    return sum(int(np.asarray(x).nbytes) for x in _tree_leaves(tree)
+               if hasattr(x, "shape"))
+
+
+def _stop_and_free(rt, algo) -> float:
+    algo.stop()
+    return _gpus_free(rt, 1.0)
+
+
+def phase_rl_ppo_cartpole() -> dict:
+    """test_ppo_learns_cartpole's config with its learner leased the GPU
+    (num_gpus_per_learner=1, the default) and the weights broadcast over
+    device input edges of the compiled sampling DAG: best >= 80 within 25
+    iterations (and above twice the first return, capped at 40), the
+    learner on cuda, the GPU reading 0 free while it lives and 1 after
+    stop(), no runner with a CUDA context after reading the weights;
+    build and first-iteration seconds (the learner's process start and
+    CUDA context), iteration seconds, env-steps/s, the broadcast's bytes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import PPOConfig
+
+    reset_launches()
+    t0 = time.perf_counter()
+    algo = PPOConfig(num_env_runners=2, num_envs_per_runner=8,
+                     rollout_fragment_length=64, lr=1e-3, entropy_coeff=0.0,
+                     minibatch_size=256, num_epochs=6, seed=3).build()
+    build_s = time.perf_counter() - t0
+    first, best, iters, results = None, 0.0, 0, []
+    try:
+        placement = rt.get(algo._learners[0].placement.remote(), timeout=120)
+        gpu_up = _gpus_free(rt, 0.0)
+        for i in range(25):
+            r = algo.train()
+            results.append(r)
+            iters = i + 1
+            ret = r["episode_return_mean"]
+            if first is None and ret > 0:
+                first = ret
+            best = max(best, ret)
+            if best >= 80.0 and i >= 4:
+                break
+        runner_cuda = _runner_cuda(algo._runners)
+        kinds = dict(algo._dag.channel_kinds)
+        edges = _input_edge_bytes(algo._dag.dag)
+        weights_bytes = _tree_nbytes(algo._weights)
+        learner_flash = _actor_flash_launches(rt, algo._learners[0])
+    finally:
+        gpu_after = _stop_and_free(rt, algo)
+    iter_s = [r["time_this_iter_s"] for r in results]
+    steps = sum(r["num_env_steps_sampled"] for r in results)
+    res = {"best": best, "first": first, "iterations": iters,
+           "gate": {"best": 80.0, "within": 25}, "placement": placement,
+           "gpu_while_learner_up": gpu_up, "gpu_after_stop": gpu_after,
+           "runner_cuda_initialized": runner_cuda, "channel_kinds": kinds,
+           "weight_broadcast": {**edges, "weights_bytes": weights_bytes},
+           "build_s": build_s, "first_iteration_s": iter_s[0],
+           "time_to_first_update_s": build_s + iter_s[0],
+           "iteration_s": iter_s,
+           "env_steps_per_s": steps / sum(iter_s[1:] or iter_s),
+           "updates_per_s": len(iter_s) / sum(iter_s),
+           "flash_launches": {"driver": _rl_flash_launches(),
+                              "learner": learner_flash},
+           "phase_s": time.perf_counter() - t0, "card": card_line()}
+    ok = (first is not None and best >= 80.0 and best > 2 * min(first, 40.0)
+          and placement["device"].startswith("cuda")
+          and gpu_up == 0.0 and gpu_after == 1.0
+          and runner_cuda == [False, False] and kinds.get("device", 0) > 0
+          and edges["device_arrays"] > 0
+          and not any(learner_flash.values()))
+    emit("rl_ppo_cartpole", **res, ok=ok)
+    if not ok:
+        raise AssertionError("rl_ppo_cartpole failed its checks")
+    return _launch_sum(res["flash_launches"])
+
+
+def _impala_run(rt, config, iters: int, gate: float) -> dict:
+    """Drive an IMPALA/APPO config until its best mean return reaches
+    `gate` (at most `iters` iterations after one warm-up) and read what the
+    phases check."""
+    import numpy as np
+
+    t_phase = t0 = time.perf_counter()
+    algo = config.build()
+    build_s = time.perf_counter() - t0
+    best, results = -1e9, []
+    try:
+        gpu_up = _gpus_free(rt, 0.0)
+        t1 = time.perf_counter()
+        warm = algo.train()
+        first_s = time.perf_counter() - t1
+        s0, t0 = algo._total_steps, time.perf_counter()
+        updates = 0
+        for _ in range(iters):
+            r = algo.train()
+            results.append(r)
+            updates += r["num_learner_updates"]
+            best = max(best, r["episode_return_mean"])
+            if best >= gate:
+                break
+        dt = time.perf_counter() - t0
+        placement = rt.get(algo._learner.placement.remote(), timeout=60)
+        runner_cuda = _runner_cuda(algo._runners)
+        kinds = dict(algo._dag.channel_kinds)
+        edges = _input_edge_bytes(algo._dag.dag)
+        weights = rt.get(algo._learner.get_weights.remote(), timeout=60)
+        learner_flash = _actor_flash_launches(rt, algo._learner)
+        cfg = algo.config
+        T, B = cfg.rollout_fragment_length, cfg.num_envs_per_runner
+        per_step = _tree_nbytes(rl_impala_batch(
+            np.random.default_rng(0), T, B,
+            tuple(getattr(algo.module_cfg, "obs_shape", None)
+                  or (algo.module_cfg.observation_size,)))) / (T * B)
+    finally:
+        gpu_after = _stop_and_free(rt, algo)
+    return {"best": best, "iterations": len(results),
+            "warmup_iteration": {k: warm[k] for k in (
+                "episode_return_mean", "num_learner_updates",
+                "time_this_iter_s")},
+            "build_s": build_s, "time_to_first_update_s": build_s + first_s,
+            "iteration_s": [r["time_this_iter_s"] for r in results],
+            "env_steps_per_s": (algo._total_steps - s0) / dt,
+            "updates_per_s": updates / dt, "updates": updates,
+            "placement": placement, "gpu_while_learner_up": gpu_up,
+            "gpu_after_stop": gpu_after,
+            "runner_cuda_initialized": runner_cuda, "channel_kinds": kinds,
+            "weight_broadcast": {**edges,
+                                 "weights_bytes": _tree_nbytes(weights)},
+            "batch_edge_bytes_per_timestep": per_step,
+            "batch_edge_bytes": per_step * cfg.train_batch_size,
+            "flash_launches": {"driver": _rl_flash_launches(),
+                               "learner": learner_flash},
+            "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+
+
+def _impala_ok(res: dict, gate: float) -> bool:
+    arrivals = res["placement"]["batch_arrivals"]
+    return (res["best"] >= gate
+            and res["placement"]["device"].startswith("cuda")
+            and set(arrivals) == {res["placement"]["device"]}
+            and res["gpu_while_learner_up"] == 0.0
+            and res["gpu_after_stop"] == 1.0
+            and not any(res["runner_cuda_initialized"])
+            and res["channel_kinds"].get("device", 0) > 0
+            and res["weight_broadcast"]["device_arrays"] > 0
+            and not any(res["flash_launches"]["learner"].values()))
+
+
+def phase_rl_impala_cartpole() -> dict:
+    """test_impala_learns_cartpole's config with its learner leased the
+    GPU: the aggregator->learner batch edges and the weight edges
+    device-kind, every batch arriving in the learner as CUDA tensors;
+    best >= 100 within 40 iterations, env-steps/s >= 250 and updates/s >=
+    0.25 (the test's floors)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import IMPALAConfig
+
+    reset_launches()
+    res = _impala_run(rt, IMPALAConfig(
+        env="CartPole-v1", num_env_runners=2, num_envs_per_runner=8,
+        rollout_fragment_length=64, train_batch_size=512, vf_coeff=0.25,
+        lr=1e-3, entropy_coeff=0.01, seed=1), 40, 100.0)
+    res["floors"] = {"env_steps_per_s": 250.0, "updates_per_s": 0.25}
+    ok = (_impala_ok(res, 100.0) and res["env_steps_per_s"] >= 250.0
+          and res["updates_per_s"] >= 0.25)
+    emit("rl_impala_cartpole", **res, ok=ok)
+    if not ok:
+        raise AssertionError("rl_impala_cartpole failed its checks")
+    return _launch_sum(res["flash_launches"])
+
+
+def phase_rl_impala_catch_cnn() -> dict:
+    """test_impala_learns_catch_with_cnn's config (Catch [10, 10, 1], the
+    CNN learner on the card): best >= -0.2 within 60 iterations."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import IMPALAConfig
+
+    reset_launches()
+    res = _impala_run(rt, IMPALAConfig(
+        env="Catch-v0", num_env_runners=2, num_envs_per_runner=16,
+        rollout_fragment_length=32, train_batch_size=1024,
+        min_updates_per_iteration=2, lr=3e-3, entropy_coeff=0.01, seed=0),
+        60, -0.2)
+    ok = _impala_ok(res, -0.2)
+    emit("rl_impala_catch_cnn", **res, ok=ok)
+    if not ok:
+        raise AssertionError("rl_impala_catch_cnn failed its checks")
+    return _launch_sum(res["flash_launches"])
+
+
+def phase_rl_offpolicy() -> dict:
+    """DQN (test_dqn_learns_cartpole's config: best >= 120 within 70
+    iterations) and SAC (test_sac_learns_line_reach's: mean |err| of the
+    policy mean < 0.12 within 40 iterations, return > -0.2, alpha moved)
+    with their learners in this process, on the card; no runner with a
+    CUDA context."""
+    import numpy as np
+
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import DQNConfig, SACConfig
+
+    reset_launches()
+    t_phase = t0 = time.perf_counter()
+    algo = DQNConfig(
+        env="CartPole-v1", num_env_runners=2, num_envs_per_runner=8,
+        rollout_fragment_length=32, learning_starts=500,
+        train_batch_size=128, updates_per_iteration=48,
+        target_update_freq=50, epsilon_decay_steps=4000,
+        lr=1e-3, seed=0).build()
+    best, it, times = -1.0, 0, []
+    try:
+        dqn_device = str(algo.learner.device)
+        for it in range(1, 71):
+            r = algo.train()
+            times.append(r["time_s"])
+            if r["episode_return_mean"] is not None:
+                best = max(best, r["episode_return_mean"])
+            if best >= 120.0:
+                break
+        dqn_runner_cuda = _runner_cuda(algo._runners)
+        updates = algo._updates
+    finally:
+        algo.stop()
+    dqn = {"best": best, "iterations": it, "device": dqn_device,
+           "updates": updates, "iteration_s": times,
+           "wall_s": time.perf_counter() - t0,
+           "runner_cuda_initialized": dqn_runner_cuda}
+    t0 = time.perf_counter()
+    algo = SACConfig(
+        env="LineReach-v0", num_env_runners=1, num_envs_per_runner=8,
+        rollout_fragment_length=16, hidden=(32, 32),
+        actor_lr=3e-3, critic_lr=3e-3, alpha_lr=3e-3,
+        initial_alpha=0.2, learning_starts=256,
+        train_batch_size=128, updates_per_iteration=32, seed=0).build()
+    probes = np.linspace(-1, 1, 9, dtype=np.float32)[:, None]
+    err, it, times = None, 0, []
+    try:
+        sac_device = str(algo.learner.device)
+        for it in range(1, 41):
+            r = algo.train()
+            times.append(r["time_s"])
+            if r["num_updates"] == 0:
+                continue
+            err = float(np.abs(algo.policy_mean(probes)
+                               - 0.7 * probes).mean())
+            if err < 0.12 and it >= 5:
+                break
+        sac_runner_cuda = _runner_cuda(algo._runners)
+    finally:
+        algo.stop()
+    sac = {"err": err, "iterations": it, "device": sac_device,
+           "alpha": r.get("alpha"), "return_mean": r["episode_return_mean"],
+           "iteration_s": times, "wall_s": time.perf_counter() - t0,
+           "runner_cuda_initialized": sac_runner_cuda}
+    launches = _rl_flash_launches()
+    ok = (best >= 120.0 and dqn_device.startswith("cuda")
+          and err is not None and err < 0.12
+          and r["episode_return_mean"] > -0.2 and r["alpha"] != 0.2
+          and sac_device.startswith("cuda")
+          and not any(dqn_runner_cuda + sac_runner_cuda)
+          and not any(launches.values()))
+    emit("rl_offpolicy", dqn=dqn, sac=sac, gates={"dqn_best": 120.0,
+         "sac_err": 0.12, "sac_return": -0.2}, flash_launches=launches,
+         phase_s=time.perf_counter() - t_phase, card=card_line(), ok=ok)
+    if not ok:
+        raise AssertionError("rl_offpolicy failed its checks")
+    return launches
+
+
+def phase_rl_multi_agent() -> dict:
+    """MultiAgentPPO with two policies, each learner leased half the GPU
+    (num_gpus_per_learner=0.5): 3 iterations, finite metrics, both
+    learners on cuda, the GPU reading 0 free while both live and 1
+    after."""
+    import math as _math
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import MultiAgentPPOConfig
+
+    reset_launches()
+    t0 = time.perf_counter()
+    algo = MultiAgentPPOConfig(
+        env="MultiAgentCartPole", env_config={"num_agents": 2},
+        num_env_runners=2, num_envs_per_runner=8,
+        rollout_fragment_length=64,
+        policies={"agent_0": {}, "agent_1": {"hidden": (32, 32)}},
+        policy_mapping_fn=lambda aid: aid, minibatch_size=512, seed=0,
+        num_gpus_per_learner=0.5).build()
+    results = []
+    try:
+        gpu_up = _gpus_free(rt, 0.0)
+        placements = {p: rt.get(lr.placement.remote(), timeout=120)
+                      for p, lr in algo._learners.items()}
+        for _ in range(3):
+            results.append(algo.train())
+        runner_cuda = _runner_cuda(algo._runners)
+        launches = {"driver": _rl_flash_launches(), **{
+            p: _actor_flash_launches(rt, lr)
+            for p, lr in algo._learners.items()}}
+    finally:
+        gpu_after = _stop_and_free(rt, algo)
+    finite = all(_math.isfinite(v) for r in results
+                 for pol in r["policies"].values() for v in pol.values())
+    res = {"policies": {p: results[-1]["policies"][p] for p in placements},
+           "placements": placements, "finite": finite,
+           "iteration_s": [r["time_this_iter_s"] for r in results],
+           "gpu_while_learners_up": gpu_up, "gpu_after_stop": gpu_after,
+           "runner_cuda_initialized": runner_cuda,
+           "flash_launches": launches,
+           "phase_s": time.perf_counter() - t0, "card": card_line()}
+    ok = (finite and len(placements) == 2
+          and all(p["device"].startswith("cuda")
+                  for p in placements.values())
+          and gpu_up == 0.0 and gpu_after == 1.0 and not any(runner_cuda)
+          and not any(_launch_sum(launches).values()))
+    emit("rl_multi_agent", **res, ok=ok)
+    if not ok:
+        raise AssertionError("rl_multi_agent failed its checks")
+    return _launch_sum(launches)
+
+
+def phase_rl() -> dict:
+    """The RL phases on the running cluster (the GPU free): parity, then
+    each algorithm's learning run. Returns each path's flash launches."""
+    phase_rl_parity()
+    return {"rl_ppo_cartpole": phase_rl_ppo_cartpole(),
+            "rl_impala_cartpole": phase_rl_impala_cartpole(),
+            "rl_impala_catch_cnn": phase_rl_impala_catch_cnn(),
+            "rl_offpolicy": phase_rl_offpolicy(),
+            "rl_multi_agent": phase_rl_multi_agent()}
+
+
 def phase_runtime(reference_losses: list, lora_step_ms: float,
                   step_ms: float) -> dict:
     """The runtime phases, serve_app_410m, the train runtime's phases and
@@ -3101,6 +3663,8 @@ def phase_runtime(reference_losses: list, lora_step_ms: float,
                                                        step_ms)
         paths["disagg_app_410m"] = phase_disagg_app_410m(serve_run,
                                                          llm_app_http)
+        # then RL: learners on the card, env runners on the CPU
+        paths.update(phase_rl())
     finally:
         rt.shutdown()
     return paths
@@ -3129,6 +3693,17 @@ def main(argv: list[str]) -> int:
         full = phase_train_410m(info["name"], STEPS_410M)
         lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
         phase_runtime(full["losses"], lora_run["step_ms"], full["step_ms"])
+        return 0
+    if argv == ["--rl"]:
+        import ray_tpu_torch as rt
+
+        phase_device()
+        phase_build()
+        rt.init()
+        try:
+            phase_rl()
+        finally:
+            rt.shutdown()
         return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama

@@ -85,7 +85,7 @@ from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
 
 # subpackages of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"collective": "6", "rl": "7", "tune": "8", "state_api": "2b"}
+_NOT_PORTED = {"collective": "6", "tune": "8", "state_api": "2b"}
 
 
 def __getattr__(name):
@@ -95,7 +95,7 @@ def __getattr__(name):
 
         return resolve_device
     if name in ("util", "serve", "models", "ops", "parallel", "experimental",
-                "train", "data", "dag"):
+                "train", "data", "dag", "rl"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -48,7 +48,7 @@ from ray_tpu_torch.core.common import (ActorDiedError, ActorState, Address,
 from ray_tpu_torch.core.gcs import CH_ACTOR, CH_NODE, CH_OBJECTS, GcsClient
 from ray_tpu_torch.core.object_ref import ObjectRef, set_core_worker
 from ray_tpu_torch.core.device_objects import (DeviceObjectStore,
-                                               deserialize_array,
+                                               deserialize_array, gpu_lease,
                                                is_device_value,
                                                serialize_array)
 from ray_tpu_torch.core.object_store import MemoryStore, make_shm_store
@@ -434,6 +434,9 @@ class CoreWorker:
         self._arg_pins_lock = threading.Lock()
         self.root_task_id = TaskID.for_normal_task(job_id)
         self._exec_ctx = _ExecutionContext()
+        # GPUs of this worker's lease: an actor's for its lifetime, a
+        # normal task's while it runs (device_objects.rebuild_device)
+        self.leased_gpus = 0.0
         self._put_index = 0
         self._put_lock = threading.Lock()
         self._conns: dict[str, Connection] = {}
@@ -3214,6 +3217,8 @@ class CoreWorker:
     def _execute_task_body(self, spec: TaskSpec):
         self._exec_ctx.task_id = spec.task_id
         self._exec_ctx.job_id = spec.job_id
+        if self.actor_id is None:
+            self.leased_gpus = gpu_lease(spec.resources)
         restore_env = None
         held_args: list = []
         try:
@@ -3236,6 +3241,8 @@ class CoreWorker:
                     restore_env()
                 except Exception:
                     pass
+            if self.actor_id is None:
+                self.leased_gpus = 0.0
             self._exec_ctx.task_id = None
             self._exec_ctx.job_id = None
 
@@ -3336,6 +3343,8 @@ class CoreWorker:
         self._exec_ctx.job_id = spec.job_id
         self._emit_task_event(spec, "RUNNING")
         held_args: list = []
+        # before the constructor runs: it may read a device edge or object
+        self.leased_gpus = gpu_lease(spec.resources)
         try:
             self._apply_runtime_env(spec)
             cls = self._resolve_function(spec)

@@ -15,10 +15,11 @@ is ROADMAP.md item 6.
 The holder of a device object is a WORKER PROCESS (not a node). `rt.get`
 in the holder returns the same torch.Tensor object; `rt.get` elsewhere
 fetches raw bytes from the holder over RPC and rebuilds the tensor on the
-consumer's device: the CUDA card when the consumer's process has one,
-else the CPU. Any tensor rides this plane, CPU tensors included (as the
-TPU build takes any jax.Array, CPU arrays included), so the plane runs on
-hosts without a card.
+consumer's device (``rebuild_device``): the CUDA card in a process that
+uses it (a worker leased a GPU, or any process that has already
+initialised CUDA), else the CPU. Any tensor rides this plane, CPU tensors
+included (as the TPU build takes any jax.Array, CPU arrays included), so
+the plane runs on hosts without a card.
 
 torch is imported inside the functions only: a worker that never touches a
 tensor boots without it.
@@ -76,12 +77,41 @@ def serialize_array(tensor) -> tuple:
             tuple(tensor.shape))
 
 
+def gpu_lease(resources: dict | None) -> float:
+    """The GPUs in a lease's resource demand: its "GPU" entry, or the
+    entries a placement-group bundle renames it to ("GPU_pg_<id>_<i>")."""
+    return sum(float(v) for k, v in (resources or {}).items()
+               if k == "GPU" or k.startswith("GPU_pg_"))
+
+
+def rebuild_device() -> str:
+    """Where this process rebuilds a tensor that arrives as host bytes:
+    "cuda" in a process that uses the card, that is one that has already
+    initialised CUDA (``torch.cuda.is_initialized()``, the rule
+    ``dag.collective.client_fingerprint`` follows) or a worker whose lease
+    holds a GPU (``CoreWorker.leased_gpus``, set from the actor's or the
+    running task's resource demand); "cpu" anywhere else, without creating
+    a CUDA context. No card is pinned per lease, so on a host with a card
+    every process sees it: a CPU-leased actor that reads a device edge
+    must not build a context there."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        return "cuda"
+    from ray_tpu_torch.core.object_ref import get_core_worker
+
+    cw = get_core_worker()
+    if getattr(cw, "leased_gpus", 0) > 0 and torch.cuda.is_available():
+        return "cuda"
+    return "cpu"
+
+
 def rebuild_tensor(host_view, dtype: str, shape):
     """A numpy view of raw host bytes -> torch.Tensor of `dtype` (a torch
-    dtype name) and `shape` on this process's device: the CUDA card when
-    there is one, else the CPU. A read-only view is copied first (a tensor
-    is writable); the copy to the card is synchronous, so the view's buffer
-    may be reused once this returns."""
+    dtype name) and `shape` on this process's device (``rebuild_device``).
+    A read-only view is copied first (a tensor is writable); the copy to
+    the card is synchronous, so the view's buffer may be reused once this
+    returns."""
     import numpy as np
     import torch
 
@@ -89,12 +119,12 @@ def rebuild_tensor(host_view, dtype: str, shape):
         host_view = host_view.copy()
     flat = torch.from_numpy(np.ascontiguousarray(host_view).reshape(-1))
     host = flat.view(torch.uint8).view(getattr(torch, dtype)).reshape(shape)
-    return host.to("cuda") if torch.cuda.is_available() else host
+    return host.to("cuda") if rebuild_device() == "cuda" else host
 
 
 def deserialize_array(payload: tuple):
-    """(bytes, dtype name, shape) -> torch.Tensor on this process's device:
-    the CUDA card when there is one, else the CPU."""
+    """(bytes, dtype name, shape) -> torch.Tensor on this process's device
+    (``rebuild_device``)."""
     import numpy as np
 
     raw, dtype, shape = payload

@@ -6,6 +6,12 @@ device move. The JAX side is handed over as numpy arrays, for example
 ``jax.tree.map(np.asarray, params)``; this module never imports jax.
 A ``"lora"`` adapter subtree (``models/lora.py``) and MoE layers convert and
 are checked like the rest.
+
+The RL trees (``rl/module.py``: MLP, CNN and continuous) convert through the
+same two functions: lists of layers stay lists, and a conv layer (a dict
+with a ``"meta"`` entry) has its weight moved between the JAX package's
+HWIO and torch's OIHW and its stride carried as a plain int (the JAX
+package's ``_ConvMeta`` static node; build one from the int to go back).
 """
 
 from __future__ import annotations
@@ -33,7 +39,16 @@ def params_from_numpy(tree: dict, device: str | torch.device | None = None,
 
     def convert(node):
         if isinstance(node, dict):
+            if "meta" in node:               # an RL conv layer
+                return {**{k: convert(v) for k, v in node.items()
+                           if k not in ("w", "meta")},
+                        "w": convert(np.asarray(node["w"]).transpose(
+                            3, 2, 0, 1)),
+                        "meta": int(getattr(node["meta"], "stride",
+                                            node["meta"]))}
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
         arr = np.asarray(node)
         if arr.dtype.name == "bfloat16":   # ml_dtypes bf16: torch cannot read it
             t = torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
@@ -96,9 +111,17 @@ def _check_lora(lora: dict, cfg) -> None:
 
 def params_to_numpy(params: dict) -> dict:
     """dict of torch tensors -> the same tree of numpy arrays on the host
-    (bf16 leaves come back as float32, which numpy can hold)."""
+    (bf16 leaves come back as float32, which numpy can hold). An RL conv
+    layer's weight goes back to HWIO and its stride stays an int."""
     if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
+        out = {k: params_to_numpy(v) for k, v in params.items()}
+        if "meta" in params:
+            out["w"] = out["w"].transpose(2, 3, 1, 0).copy()
+        return out
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    if not isinstance(params, torch.Tensor):
+        return params
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

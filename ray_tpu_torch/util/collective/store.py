@@ -133,8 +133,11 @@ class StoreServer:
                     op.cond.notify_all()
                 else:
                     op.cond.wait_for(lambda: op.done or self._closed)
-                if self._closed:
-                    return
+                if not op.done:
+                    return      # closed before every rank arrived
+                # a computed result is always delivered: rank 0 may close
+                # the store the moment its own reply lands (a one-shot
+                # group's destroy), before this thread has woken to reply
                 reply = self._result_for(kind, rank, op.result)
             send_msg(conn, reply)
             self._finish_reply(key, op)

@@ -656,6 +656,52 @@ def test_device_objects_one_tensor_is_one_shard():
     assert serialize_array(h)[1:] == ("bfloat16", (3,))
 
 
+def test_store_replies_after_rank0_closes_the_one_shot_group_torch():
+    """The per-call executor's allreduce joins a one-shot host group and
+    destroys it at once: rank 0 closes the store the moment its own reply
+    lands. A rank whose handler wakes after that close still gets the
+    computed result (it used to be dropped: 'peer closed during recv',
+    the load-dependent failure of
+    test_mixed_kind_graph_with_allreduce_fast_path_torch's fallback)."""
+    import threading
+
+    from ray_tpu_torch.util.collective import store
+
+    server = store.StoreServer(world_size=2)
+    get_op = server._get_op
+
+    class _CloseOnWake(threading.Condition):
+        def wait_for(self, predicate, timeout=None):
+            ok = super().wait_for(predicate, timeout)
+            server.close()      # rank 0's destroy wins the race
+            return ok
+
+    def hooked(key):
+        op = get_op(key)
+        if not isinstance(op.cond, _CloseOnWake):
+            op.cond = _CloseOnWake()
+        return op
+
+    server._get_op = hooked
+    addr = ("127.0.0.1", server.port)
+    got = {}
+
+    def call(rank):
+        got[rank] = store.store_call(addr, "allreduce:sum", "k#0", rank,
+                                     np.full((4,), float(rank + 1)), 30)
+
+    waiter = threading.Thread(target=call, args=(1,))
+    waiter.start()
+    deadline = time.monotonic() + 30
+    while not (server._ops.get("k#0") and 1 in server._ops["k#0"].parts):
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    call(0)
+    waiter.join(30)
+    np.testing.assert_array_equal(got[0], np.full((4,), 3.0))
+    np.testing.assert_array_equal(got[1], np.full((4,), 3.0))
+
+
 # ------------------------------- twins of deselected reference tests
 
 def test_mixed_kind_graph_with_allreduce_fast_path_torch():

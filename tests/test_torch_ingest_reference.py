@@ -9,8 +9,9 @@ recorder's waterfall, heartbeat and memory, the async checkpoint split)
 run through ``torch_repoint``, one pytest subprocess each, with the train
 files' rewrites. Four observability tests are deselected
 (``torch_repoint.DESELECT``): wrap_jit with jnp arrays has a twin in
-``tests/test_torch_train.py``; two read ``state_api`` and the CLI
-(ROADMAP.md item 2b) and one drives the RL learner (item 7). Every
+``tests/test_torch_train.py``; three read ``state_api`` or the CLI
+(ROADMAP.md item 2b), the RL learner's waterfall among them (its twin is
+in ``tests/test_torch_rl.py``). Every
 selected test passes with no import of jax or ray_tpu in that process.
 """
 

@@ -10,6 +10,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import textwrap
 
 import pytest
 import torch
@@ -38,7 +39,7 @@ def test_package_imports_no_jax_optax_or_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, bad = int(out[0]), out[1:]
-    assert n_modules >= 104
+    assert n_modules >= 118
     assert bad == [], f"ray_tpu_torch pulled in {bad}"
 
 
@@ -84,6 +85,28 @@ def _entry_points():
             lambda p, b: (None, {}), adamw(1e-3), {}),
         "resolve_device": lambda: ray_tpu_torch.resolve_device(None),
         "run_microbenchmarks": lambda: perf.run_microbenchmarks(0.01),
+        **_rl_entry_points(),
+    }
+
+
+def _rl_entry_points():
+    """The RL learners' entry points: each leases the card by default."""
+    import cloudpickle
+
+    from ray_tpu_torch.rl import dqn, impala, learner, module, sac
+
+    mlp = module.MLPModuleConfig(4, 2)
+    return {
+        "rl_init_params": lambda: module.init_params(mlp, 0),
+        "rl_init_continuous_params": lambda: module.init_continuous_params(
+            module.ContinuousModuleConfig(3, 1), 0),
+        "TorchLearner": lambda: learner.TorchLearner(
+            cloudpickle.dumps(mlp),
+            cloudpickle.dumps(learner.PPOLearnerConfig())),
+        "IMPALALearner": lambda: impala.IMPALALearner(
+            cloudpickle.dumps(mlp), cloudpickle.dumps(impala.IMPALAConfig())),
+        "DQN": lambda: dqn.DQNConfig().build(),
+        "SAC": lambda: sac.SACConfig().build(),
     }
 
 
@@ -94,7 +117,10 @@ def _entry_points():
                                   "MultiplexedLoraService",
                                   "PrefillWorker", "DecodeLlamaService",
                                   "init_moe_params", "mlp_init",
-                                  "run_microbenchmarks"])
+                                  "run_microbenchmarks", "rl_init_params",
+                                  "rl_init_continuous_params",
+                                  "TorchLearner", "IMPALALearner", "DQN",
+                                  "SAC"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -197,7 +223,57 @@ def test_every_module_is_walked():
             "ray_tpu_torch.dag.dcn_channel", "ray_tpu_torch.dag.collective",
             "ray_tpu_torch.dag.compiled", "ray_tpu_torch.dag.channel_exec",
             "ray_tpu_torch.dag.recovery",
-            "ray_tpu_torch._internal.perf"} <= names
+            "ray_tpu_torch._internal.perf", "ray_tpu_torch.rl",
+            "ray_tpu_torch.rl.actor_manager", "ray_tpu_torch.rl.connectors",
+            "ray_tpu_torch.rl.dqn", "ray_tpu_torch.rl.env",
+            "ray_tpu_torch.rl.env_runner", "ray_tpu_torch.rl.impala",
+            "ray_tpu_torch.rl.learner", "ray_tpu_torch.rl.module",
+            "ray_tpu_torch.rl.module_config",
+            "ray_tpu_torch.rl.multi_agent", "ray_tpu_torch.rl.ppo",
+            "ray_tpu_torch.rl.replay", "ray_tpu_torch.rl.sac",
+            "ray_tpu_torch.rl.vtrace"} <= names
+
+
+_RL_TORCH_FREE = """
+import sys
+import ray_tpu_torch.rl.impala, ray_tpu_torch.rl.replay
+from ray_tpu_torch.rl import AggregatorActor, IMPALAConfig, ReplayBuffer
+print("torch" in sys.modules)
+"""
+
+
+def test_rl_aggregator_and_replay_buffer_import_no_torch():
+    """IMPALA's aggregator and the replay buffer are numpy actors: their
+    processes boot without torch (rl/__init__ loads submodules lazily and
+    the module configs live in the torch-free module_config)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _RL_TORCH_FREE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert out == ["False"]
+
+
+def test_rl_runners_and_aggregators_name_no_cuda_path():
+    """The sampling actors and the aggregator never place anything on the
+    card: the only CUDA their sources name is the probe that reports that
+    the process never initialised it."""
+    from ray_tpu_torch.rl import dqn, env_runner, impala, multi_agent, sac
+
+    for obj in (env_runner.EnvRunner, dqn.DQNRunner, sac.SACRunner,
+                multi_agent.MultiAgentEnvRunner, impala.AggregatorActor,
+                env_runner.runner_torch):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.ClassDef, ast.FunctionDef))
+                and isinstance(n.body[0], ast.Expr)}
+        probes = {id(n.value) for n in ast.walk(tree)
+                  if isinstance(n, ast.Attribute)
+                  and n.attr == "is_initialized"}
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Attribute) and n.attr == "cuda":
+                assert id(n) in probes, (obj.__name__, ast.unparse(n))
+            if isinstance(n, ast.Constant) and id(n) not in docs:
+                assert "cuda" not in str(n.value).lower(), obj.__name__
 
 
 _TRAIN_IMPORT = """

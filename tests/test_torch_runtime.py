@@ -334,8 +334,9 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
     with pytest.raises(NotImplementedError, match="autoscaler.*item 8"):
         Cluster(autoscaler_config={"node_types": []})
     assert rt.dag.InputNode is not None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rt.rl  # noqa: B018
+    # RL is ported (its offline algorithms come with the data plane)
+    assert rt.rl.PPOConfig is not None
+    assert not hasattr(rt.rl, "BCConfig")
     # the train runtime and the host collective tier are ported; the
     # device tier of the collectives (NCCL between cards) is not
     assert rt.train.TorchTrainer is not None

@@ -47,7 +47,16 @@ TRAIN_REWRITES = (
 DAG_OBS_REWRITES = (
     (r"^(\s*)import ray_tpu_torch$", r"\1import ray_tpu_torch as ray_tpu"),
 )
-FILE_REWRITES = {"test_train": TRAIN_REWRITES,
+# the RL files' own rewrite: every algorithm config asks for a learner on
+# the CPU (the port's default leases it a GPU, as the reference's learners
+# take the CPU when jax_platforms=cpu pins it)
+RL_REWRITES = (
+    (r"\b(PPO|IMPALA|APPO|DQN|SAC|MultiAgentPPO)Config\(",
+     r"\1Config(num_gpus_per_learner=0, "),
+)
+FILE_REWRITES = {"test_rl": RL_REWRITES, "test_sac": RL_REWRITES,
+                 "test_rl_multi_agent": RL_REWRITES,
+                 "test_train": TRAIN_REWRITES,
                  "test_ingest_train": TRAIN_REWRITES,
                  "test_train_observability": TRAIN_REWRITES,
                  "test_dag_observability": DAG_OBS_REWRITES}
@@ -66,6 +75,7 @@ class Deselect:
 _JAX_BODY = "its body runs jax"
 _TWINS = "tests/test_torch_train.py::"
 _DAG_TWINS = "tests/test_torch_dag_device.py::"
+_RL_TWINS = "tests/test_torch_rl.py::"
 DESELECT = {
     "test_train": {
         "test_save_load_pytree": Deselect(
@@ -94,7 +104,32 @@ DESELECT = {
         "test_pause_ingest_stall_drill": Deselect(
             "reads state_api", "2b", None),
         "test_rl_learner_emits_step_waterfall": Deselect(
-            "drives the RL learner (ray_tpu.rl)", "7", None),
+            "reads state_api", "2b",
+            _RL_TWINS + "test_rl_learner_emits_step_waterfall_torch"),
+    },
+    "test_rl": {
+        "test_vtrace_on_policy_reduces_to_returns": Deselect(
+            _JAX_BODY + " (jnp inputs to vtrace)", None,
+            _RL_TWINS + "test_vtrace_on_policy_reduces_to_returns_torch"),
+        "test_vtrace_done_cuts_bootstrap": Deselect(
+            _JAX_BODY + " (jnp inputs to vtrace)", None,
+            _RL_TWINS + "test_vtrace_done_cuts_bootstrap_torch"),
+        "test_impala_learns_cartpole": Deselect(
+            _JAX_BODY + " (its pack-coverage tail packs jnp weights)",
+            None, _RL_TWINS + "test_impala_learns_cartpole_torch"),
+        "test_cnn_module_forward_and_grad": Deselect(
+            _JAX_BODY + " (jax.random keys, an optax round trip)", None,
+            _RL_TWINS + "test_cnn_module_forward_and_grad_torch"),
+    },
+    "test_sac": {
+        "test_sample_squashed_logp_matches_density": Deselect(
+            _JAX_BODY + " (jnp inputs, a jax.random key)", None,
+            _RL_TWINS + "test_sample_squashed_logp_matches_density_torch"),
+    },
+    "test_rl_multi_agent": {
+        "test_policy_mapping_groups_agents": Deselect(
+            _JAX_BODY + " (jax.random init of the policies' params)", None,
+            _RL_TWINS + "test_policy_mapping_groups_agents_torch"),
     },
     "test_dag_dcn": {
         "test_mixed_kind_graph_with_allreduce_fast_path": Deselect(

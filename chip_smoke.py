@@ -126,6 +126,24 @@ caught, so any failure exits non-zero):
    after reading its weights, and counts the flash launches of its
    processes (0: RL runs no attention).
 
+15. surfaces_410m, once the runtime cluster is shut down: the runtime's
+   surfaces on a head started through the CLI. `python -m ray_tpu_torch
+   start --head --dashboard-port 0` with no --num-gpus advertises the
+   cards nvidia-smi lists and labels the head with the part's name;
+   `status` prints the GPU line. `job submit -- python <driver>` runs a
+   3-step TorchTrainer fit of the 410m train step (b8 s2048, bf16,
+   remat "dots", flash) in a TrainWorker leased the GPU: the job reads
+   SUCCEEDED, the worker counts 48/24/24 flash launches a step, `list
+   actors` shows the TrainWorker holding GPU 1 while it lives, `train
+   status` and the dashboard's /api/train list the run with cuda:0's
+   memory within 5% of the worker's own torch.cuda.memory_stats reading,
+   /metrics carries rayt_device_memory_used_bytes for cuda:0, and the GPU
+   reads 1 free after the fit. A client process that never imports torch
+   runs a num_gpus=1 task through `client-server` that names the part.
+   `stop` leaves no process of the cluster behind. Prints the head's
+   start ms, status's wall ms, the job's submit-to-SUCCEEDED s, its step
+   ms beside train_410m's, and the client task's round trip.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
 prints no result.
@@ -153,6 +171,11 @@ the trainer, the compiled-graph and the RL phases among them) alone.
     python3 chip_smoke.py --rl
 
 runs device, build and the RL phases alone, on a cluster of their own.
+
+    python3 chip_smoke.py --surfaces
+
+runs device, build, train_410m (for its step time) and surfaces_410m
+alone.
 """
 
 from __future__ import annotations
@@ -166,6 +189,7 @@ import statistics
 import subprocess
 import sys
 import time
+import uuid
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS_410M = 5   # timed steps, after 2 warm-up steps
@@ -3618,6 +3642,341 @@ def phase_rl_multi_agent() -> dict:
     return _launch_sum(launches)
 
 
+# --------------------------------------------------------- the surfaces
+SURFACES_STEPS = 3          # the job's train steps; ms from the 2nd on
+SURFACES_REST_S = 3.0       # the worker at rest after its last step
+SURFACES_MEM_TOLERANCE = 0.05
+
+
+def surfaces_train_loop(config: dict):
+    """The 410m train step (config_410m: b8 s2048, bf16 compute, remat
+    "dots", flash) in a TrainWorker, SURFACES_STEPS steps, each recorded
+    by the session's step recorder. Reports the losses, the flash launch
+    counts of the steps, the mean step ms from the 2nd step on, the GPU
+    free while the worker lives, and the worker's own
+    torch.cuda.memory_stats reading after the last step. The worker then
+    rests SURFACES_REST_S s inside a recorder phase named "rest", which
+    no step stage accumulates: an open phase keeps the recorder's flush
+    cycle (and its once-a-second memory snapshot) running, so the run's
+    last snapshot samples the card at rest, and no stage of the run shows
+    the rest as time it spent."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+    from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+
+    ctx = train.get_context()
+    rec = ctx.recorder
+    if rec is None:
+        raise RuntimeError("the session has no step recorder")
+    device = ctx.get_device()
+    cfg = config_410m()
+    step, state = build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4),
+        llama.init_params(cfg, seed=0, device=device), device=device)
+    batch = batch_410m(cfg.vocab_size)
+    deadline = time.monotonic() + 30   # the view follows a lease
+    gpu_free = rt.available_resources().get("GPU")
+    while gpu_free != 0.0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+        gpu_free = rt.available_resources().get("GPU")
+    reset_launches()                   # counts: the job's steps only
+    losses, stamps = [], []
+    for i in range(SURFACES_STEPS):
+        stamps.append(time.perf_counter())
+        with rec.phase("step"):
+            state, aux = step(state, batch)
+            losses.append(aux["loss"].item())   # waits for the card
+        rec.end_step(i + 1, loss=losses[-1])
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    counts = dict(launches)
+    mem = torch.cuda.memory_stats(0)
+    mine = int(mem["allocated_bytes.all.current"])
+    mine_at = time.time()
+    with rec.phase("rest"):
+        time.sleep(SURFACES_REST_S)
+    train.report({
+        "loss": losses[-1], "losses": losses, "launches": counts,
+        "step_ms": (end - stamps[1]) / (SURFACES_STEPS - 1) * 1e3,
+        "first_step_ms": (stamps[1] - stamps[0]) * 1e3,
+        "gpu_free_in_worker": gpu_free, "mem_bytes": mine,
+        "mem_at": mine_at, "device": str(device),
+        "n_layers": cfg.n_layers})
+    return losses[-1]
+
+
+_SURFACES_JOB = """
+import json, os, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+import ray_tpu_torch as rt
+from ray_tpu_torch import train
+
+rt.init(address=os.environ["RAYT_ADDRESS"])
+result = train.TorchTrainer(
+    chip_smoke.surfaces_train_loop, train_loop_config={{}},
+    scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+    run_config=train.RunConfig(name="surfaces-410m",
+                               storage_path={storage!r})).fit()
+if result.error is not None:
+    rt.shutdown()
+    raise SystemExit(f"the fit failed: {{result.error}}")
+print("SURFACES_RESULT " + json.dumps(result.metrics), flush=True)
+# the GCS drops a job's train runs when its driver exits: hold the job
+# until the phase has read the run through the CLI and the dashboard
+deadline = time.monotonic() + 600
+while not os.path.exists({done!r}) and time.monotonic() < deadline:
+    time.sleep(0.2)
+rt.shutdown()
+"""
+
+_SURFACES_CLIENT = """
+import json, sys, time
+from ray_tpu_torch import client
+
+ctx = client.connect({addr!r})
+
+
+@ctx.remote(num_gpus=1)
+def card_name():
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
+times, names = [], []
+for _ in range(3):
+    t0 = time.perf_counter()
+    names.append(ctx.get(card_name.remote(), timeout=300))
+    times.append((time.perf_counter() - t0) * 1e3)
+ctx.disconnect()
+print("CLIENT_RESULT " + json.dumps({{
+    "names": names, "round_trip_ms": times,
+    "torch_in_client": "torch" in sys.modules}}), flush=True)
+"""
+
+
+def _cli(*args, timeout: float = 120) -> tuple[str, float]:
+    """`python -m ray_tpu_torch <args>` from the checkout: its stdout and
+    wall ms; raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        raise AssertionError(f"ray_tpu_torch {' '.join(args)} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout, wall_ms
+
+
+def _session_pids(sid: int) -> list[int]:
+    """Processes of the session `sid`, this one aside. The CLI starts its
+    head in a session of its own, and the head's node managers, workers
+    and jobs inherit it, so the head's pid names its cluster's processes
+    and no other checkout's."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            if os.getsid(int(entry)) == sid:
+                pids.append(int(entry))
+        except OSError:
+            continue
+    return pids
+
+
+def _gpu_line(status: str) -> str:
+    return next((ln.strip() for ln in status.splitlines()
+                 if ln.strip().startswith("GPU:")), "")
+
+
+def phase_surfaces_410m(step_ms: float) -> dict:
+    """The runtime's surfaces on a head started through the CLI: start,
+    status, job submit of a 3-step 410m TorchTrainer fit, list actors,
+    train status, the dashboard's /api/train and /metrics, a thin client's
+    GPU task, stop (see the module docstring, 15). Returns the job's
+    worker's flash launch counts."""
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    card = card_line()
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split("\n")
+    names = [n.strip() for n in names if n.strip()]
+    torch.cuda.empty_cache()
+    res: dict = {"card": card, "nvidia_smi_cards": names,
+                 "in_process_step_ms": step_ms}
+    job_id = f"surfaces-410m-{uuid.uuid4().hex[:8]}"
+    proxy = None
+    head_pid = None
+    head_up = False
+    try:
+        out, res["head_start_ms"] = _cli("start", "--head",
+                                         "--dashboard-port", "0")
+        head_up = True
+        head_pid = int(re.search(r"head started \(pid (\d+)\)",
+                                 out).group(1))
+        address = re.search(r"address: (\S+)", out).group(1)
+        dash_port = int(re.search(r"dashboard: http://127\.0\.0\.1:(\d+)",
+                                  out).group(1))
+        status, res["status_wall_ms"] = _cli("status")
+        res["status_gpu_line"] = _gpu_line(status)
+        nodes = json.loads(_cli("list", "nodes")[0])
+        [head] = [n for n in nodes if n.get("labels", {}).get("head")]
+        res["head_resources_gpu"] = head["resources"].get("GPU")
+        res["head_labels"] = head["labels"]
+
+        work = tempfile.mkdtemp(prefix="rayt_torch_surfaces_")
+        driver = os.path.join(work, "surfaces_job.py")
+        done = os.path.join(work, "read")
+        with open(driver, "w") as f:
+            f.write(_SURFACES_JOB.format(root=ROOT, storage=work, done=done))
+        t_submit = time.perf_counter()
+        _cli("job", "submit", "--submission-id", job_id, "--",
+             sys.executable, driver)
+        job_status, worker_row, job, logs = "", None, None, ""
+        deadline = time.monotonic() + 900
+        while job is None and time.monotonic() < deadline:
+            job_status = json.loads(_cli("job", "status",
+                                         job_id)[0])["status"]
+            if worker_row is None:
+                worker_row = next(
+                    (a for a in json.loads(_cli("list", "actors")[0])
+                     if a["class_name"] == "TrainWorker"
+                     and a["state"] == "ALIVE"), None)
+            logs = _cli("job", "logs", job_id)[0]
+            line = next((ln for ln in logs.splitlines()
+                         if ln.startswith("SURFACES_RESULT ")), None)
+            if line is not None:
+                job = json.loads(line.split(" ", 1)[1])
+            elif job_status in ("SUCCEEDED", "FAILED", "STOPPED"):
+                break
+            else:
+                time.sleep(0.5)
+        res["job_submit_to_result_s"] = time.perf_counter() - t_submit
+        if job is None:
+            raise AssertionError(f"the job ended {job_status} with no "
+                                 f"result: {logs[-4000:]}")
+        res["worker_row"] = worker_row
+        res["job"] = {k: job[k] for k in (
+            "losses", "launches", "step_ms", "first_step_ms",
+            "gpu_free_in_worker", "mem_bytes", "device")}
+        res["step_ms_vs_in_process"] = job["step_ms"] / step_ms
+        n = job["n_layers"] * SURFACES_STEPS
+        want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        res["expected_launches"] = want
+
+        # the run as `train status` and the dashboard show it
+        train_status = _cli("train", "status")[0]
+        m = re.search(r"run (\w+) experiment='surfaces-410m'.*?"
+                      r"mem_used=([\d.]+)MB", train_status, re.S)
+        res["train_status_mem_mb"] = float(m.group(2)) if m else None
+        api = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{dash_port}/api/train", timeout=30).read())
+        [run] = [r for r in api["runs"]
+                 if r["experiment"] == "surfaces-410m"]
+        devices = run["workers"]["0"]["memory"]["devices"]
+        res["api_train_devices"] = devices
+        res["api_train_memory_ts_after_reading"] = (
+            run["workers"]["0"]["memory"]["ts"] >= job["mem_at"])
+        cuda0 = next((d for d in devices if d["device"] == "cuda:0"), {})
+        res["api_mem_rel_diff"] = (
+            abs(cuda0.get("bytes_in_use", 0) - job["mem_bytes"])
+            / job["mem_bytes"])
+        res["train_status_mem_rel_diff"] = (
+            abs(res["train_status_mem_mb"] * 1e6 - job["mem_bytes"])
+            / job["mem_bytes"] if m else None)
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{dash_port}/metrics", timeout=30).read()
+        res["metrics_cuda0_line"] = next(
+            (ln for ln in metrics.decode().splitlines()
+             if ln.startswith("rayt_device_memory_used_bytes")
+             and 'device="cuda:0"' in ln), None)
+        open(done, "w").close()            # the job may end now
+        deadline = time.monotonic() + 120
+        while job_status not in ("SUCCEEDED", "FAILED", "STOPPED") \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+            job_status = json.loads(_cli("job", "status",
+                                         job_id)[0])["status"]
+        res["job_status"] = job_status
+        res["job_submit_to_end_s"] = time.perf_counter() - t_submit
+        deadline = time.monotonic() + 60   # the view follows a lease
+        while True:
+            res["status_gpu_line_after"] = _gpu_line(_cli("status")[0])
+            if (res["status_gpu_line_after"] == f"GPU: {len(names)}/"
+                    f"{len(names)} available"
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+
+        # a thin client: a GPU task through the client proxy
+        proxy = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "client-server",
+             "--address", address, "--port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        port = json.loads(proxy.stdout.readline())["client_port"]
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c",
+             _SURFACES_CLIENT.format(addr=f"127.0.0.1:{port}")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": ROOT})
+        res["client_wall_s"] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the client failed: {out.stderr[-3000:]}")
+        res["client"] = json.loads(next(
+            ln for ln in out.stdout.splitlines()
+            if ln.startswith("CLIENT_RESULT ")).split(" ", 1)[1])
+    finally:
+        if proxy is not None:
+            proxy.terminate()
+            proxy.wait(timeout=30)
+        if head_up:
+            _cli("stop")
+    deadline = time.monotonic() + 60
+    while (head_pid is not None and _session_pids(head_pid)
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    res["cluster_pids_after_stop"] = (
+        None if head_pid is None else sorted(_session_pids(head_pid)))
+    job, client = res["job"], res["client"]
+    ok = (res["head_resources_gpu"] == float(len(names)) and bool(names)
+          and res["head_labels"].get("gpu-type") == names[0]
+          and res["status_gpu_line"] == f"GPU: {len(names)}/{len(names)} "
+          "available"
+          and res["job_status"] == "SUCCEEDED"
+          and job["launches"] == res["expected_launches"]
+          and job["device"] == "cuda" and job["gpu_free_in_worker"] == 0.0
+          and all(math.isfinite(x) for x in job["losses"])
+          and res["worker_row"] is not None
+          and res["worker_row"]["required_resources"].get("GPU") == 1.0
+          and res["api_train_memory_ts_after_reading"]
+          and res["api_mem_rel_diff"] <= SURFACES_MEM_TOLERANCE
+          and res["train_status_mem_rel_diff"] is not None
+          and res["train_status_mem_rel_diff"] <= SURFACES_MEM_TOLERANCE
+          and res["metrics_cuda0_line"] is not None
+          and res["status_gpu_line_after"] == f"GPU: {len(names)}/"
+          f"{len(names)} available"
+          and client["names"] == [names[0]] * len(client["names"])
+          and not client["torch_in_client"]
+          and res["cluster_pids_after_stop"] == [])
+    emit("surfaces_410m", **res, steps=SURFACES_STEPS,
+         mem_tolerance=SURFACES_MEM_TOLERANCE, ok=ok)
+    if not ok:
+        raise AssertionError("surfaces_410m failed its checks")
+    return job["launches"]
+
+
 def phase_rl() -> dict:
     """The RL phases on the running cluster (the GPU free): parity, then
     each algorithm's learning run. Returns each path's flash launches."""
@@ -3705,6 +4064,12 @@ def main(argv: list[str]) -> int:
         finally:
             rt.shutdown()
         return 0
+    if argv == ["--surfaces"]:
+        info = phase_device()
+        phase_build()
+        full = phase_train_410m(info["name"], STEPS_410M)
+        phase_surfaces_410m(full["step_ms"])
+        return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama
 
@@ -3733,6 +4098,7 @@ def main(argv: list[str]) -> int:
     phase_lora_serve_410m()
     paths.update(phase_runtime(full["losses"], lora_run["step_ms"],
                                full["step_ms"]))
+    paths["surfaces_job_410m"] = phase_surfaces_410m(full["step_ms"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

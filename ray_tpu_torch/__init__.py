@@ -54,9 +54,15 @@ to a decode pool over one::
     compiled = dag.experimental_compile()
     compiled.execute(0).get()
 
+The runtime's surfaces: ``state_api``, ``python -m ray_tpu_torch``
+(``scripts/cli``: start --head, status, list, job submit, train status,
+...), the dashboard with job submission (``dashboard``, started by the
+head with ``--dashboard-port``) and the thin client (``client``).
+
 The package never imports jax. Its root, ``core``, ``_internal``,
-``util``, ``dag``, ``serve`` (all but ``serve.llm``), ``train`` and
-``data`` never import torch either (the train recipes import it inside
+``util``, ``dag``, ``serve`` (all but ``serve.llm``), ``train``,
+``data``, ``state_api``, ``scripts``, ``dashboard`` and ``client`` never
+import torch either (the train recipes import it inside
 their bodies): workers boot with ``python -S`` in about 100 ms and pay
 torch's import only when a task uses it, so ``resolve_device`` is a lazy
 attribute.
@@ -85,7 +91,7 @@ from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
 
 # subpackages of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"collective": "6", "tune": "8", "state_api": "2b"}
+_NOT_PORTED = {"collective": "6", "tune": "8"}
 
 
 def __getattr__(name):
@@ -95,7 +101,7 @@ def __getattr__(name):
 
         return resolve_device
     if name in ("util", "serve", "models", "ops", "parallel", "experimental",
-                "train", "data", "dag", "rl"):
+                "train", "data", "dag", "rl", "state_api"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -36,15 +36,6 @@ class NodeHandle:
         return NodeID.from_hex(self.node_id_hex)
 
 
-def _check_head_options(autoscaler_config, dashboard_port) -> None:
-    from ray_tpu_torch.core.head_main import not_ported
-
-    if autoscaler_config:
-        not_ported("autoscaler")
-    if dashboard_port is not None and dashboard_port >= 0:
-        not_ported("dashboard")
-
-
 class Cluster:
     def __init__(self, head_resources: dict | None = None,
                  initialize_head: bool = True,
@@ -52,7 +43,10 @@ class Cluster:
                  persist_path: str | None = None,
                  autoscaler_config: dict | None = None,
                  dashboard_port: int | None = None):
-        _check_head_options(autoscaler_config, dashboard_port)
+        if autoscaler_config:
+            from ray_tpu_torch.core.head_main import not_ported
+
+            not_ported("autoscaler")
         self.head_proc: subprocess.Popen | None = None
         self.gcs_port: int | None = None
         self.dashboard_port: int | None = None

@@ -185,6 +185,8 @@ class ActorInfo:
     max_restarts: int = 0
     death_cause: str = ""
     class_name: str = ""
+    # the resources the actor holds while it lives, set at registration
+    required_resources: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

@@ -1107,7 +1107,7 @@ class GcsServer:
             actor_id=spec.actor_id, name=opts.name, namespace=opts.namespace,
             state=ActorState.PENDING, address=None, worker_id=None,
             node_id=None, max_restarts=opts.max_restarts,
-            class_name=spec.name)
+            class_name=spec.name, required_resources=dict(spec.resources))
         self.actors[spec.actor_id] = info
         self.actor_specs[spec.actor_id] = spec
         self._record_task_transition(spec, "PENDING_ARGS")

@@ -16,7 +16,7 @@ import sys
 
 # head services of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"dashboard": "2b", "autoscaler": "8"}
+_NOT_PORTED = {"autoscaler": "8"}
 
 
 def not_ported(service: str):
@@ -26,8 +26,6 @@ def not_ported(service: str):
 
 
 async def run(args):
-    if args.dashboard_port >= 0:
-        not_ported("dashboard")
     if args.autoscaler_config:
         not_ported("autoscaler")
     from ray_tpu_torch._internal.ids import NodeID
@@ -38,7 +36,13 @@ async def run(args):
     gcs = GcsServer(persist_path=args.persist_path or None)
     gcs_port = await gcs.start(port=args.gcs_port)
     dashboard_port = -1
+    dashboard = None
     nm = None
+    if args.dashboard_port >= 0:
+        from ray_tpu_torch.dashboard import DashboardHead
+
+        dashboard = DashboardHead(gcs, f"127.0.0.1:{gcs_port}")
+        dashboard_port = await dashboard.start(port=args.dashboard_port)
     if args.gcs_only:
         print(json.dumps({"gcs_port": gcs_port, "nm_port": -1,
                           "node_id": None,
@@ -67,6 +71,8 @@ async def run(args):
     try:
         await stop.wait()
     finally:
+        if dashboard is not None:
+            await dashboard.stop()
         if nm is not None:
             await nm.stop()
         await gcs.stop()

@@ -87,6 +87,19 @@ def _open_untracked(**kwargs) -> shared_memory.SharedMemory:
             resource_tracker.register = orig
 
 
+def _unlink_untracked(shm: shared_memory.SharedMemory) -> None:
+    """Unlink a segment opened by ``_open_untracked``. Below 3.13,
+    ``SharedMemory.unlink()`` always sends the tracker an unregister for
+    a name it never registered, and the tracker prints a KeyError
+    traceback for each: unlink the name directly instead."""
+    if sys.version_info >= (3, 13):
+        shm.unlink()
+        return
+    import _posixshmem
+
+    _posixshmem.shm_unlink(shm._name)  # type: ignore[attr-defined]
+
+
 def _atomics_lib():
     """The native release/acquire helpers, or None (pure-Python
     fallback). Import is lazy and failure-tolerant: channels must work
@@ -293,7 +306,7 @@ class ShmChannel:
             pass
         if self._owner:
             try:
-                self._shm.unlink()
+                _unlink_untracked(self._shm)
             except Exception:
                 pass
 

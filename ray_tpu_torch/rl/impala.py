@@ -316,7 +316,6 @@ class IMPALALearner:
         try:
             from ray_tpu_torch.train.telemetry import (StepRecorder,
                                                        mint_run_id,
-                                                       publish_record,
                                                        recording_enabled)
 
             if recording_enabled():
@@ -331,7 +330,10 @@ class IMPALALearner:
                     job_hex = get_core_worker().job_id.hex()
                 except Exception:
                     pass
-                publish_record({
+                # the run record rides the recorder's own publisher, so a
+                # flush of the step records carries it too (the module's
+                # publisher flushes on a timer and could trail them)
+                self._recorder._pub.publish({
                     "kind": "run", "run_id": self._run_id,
                     "experiment": exp, "job_id": job_hex,
                     "world_size": 1, "state": "RUNNING",

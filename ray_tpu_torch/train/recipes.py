@@ -98,7 +98,10 @@ def corpus_pretrain_loop(config: dict):
 
     def sgd_step(w, tokens):
         w = w.detach().requires_grad_(True)
-        emb = w[tokens]  # (B, T, dim) gather
+        # the cast is the step's first op: the first op after a dequeue
+        # may wait for the GIL while the prefetch thread builds the next
+        # batch, and that wait belongs to a stage, not to the residual
+        emb = w[tokens.long()]  # (B, T, dim) gather
         loss = torch.mean(torch.square(emb - torch.mean(emb)))
         (grad,) = torch.autograd.grad(loss, w)
         return (w - lr * grad).detach(), loss.detach()
@@ -129,7 +132,7 @@ def corpus_pretrain_loop(config: dict):
                 batch = next(it)  # ingest stamps data_wait and h2d
             except StopIteration:
                 break  # corpus exhausted before `steps`
-            tokens = batch["tokens"].long()
+            tokens = batch["tokens"]
             n_tokens = tokens.numel()
             if trace_dir:
                 np.save(os.path.join(trace_dir, f"rank{rank}",

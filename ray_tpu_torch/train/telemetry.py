@@ -368,7 +368,14 @@ class StepRecorder:
 
     def close(self):
         """Worker teardown: stop sidecars and drain the buffer
-        synchronously so the run's final records survive the actor."""
+        synchronously so the run's final records survive the actor. A run
+        that ended before its first flush cycle took a memory snapshot
+        lands one here."""
+        if not self._closed and self._last_mem_ts == 0.0:
+            self._last_mem_ts = time.time()
+            mem = self._memory_record()
+            if mem is not None:
+                self._pub.publish(mem)
         self._closed = True
         self._phase = None
         self._pub.flush_now()

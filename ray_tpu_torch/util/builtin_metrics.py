@@ -430,7 +430,7 @@ def train_compile_metric_records(experiment: str, *, event: str,
 
 def device_memory_gauge_records(node_hex: str, devices, *,
                                 ts: float = 0.0) -> list:
-    """Per-device memory gauges from a worker's jax memory_stats()
+    """Per-device memory gauges from a worker's memory
     snapshot: bytes in use + peak, tagged (node, device) so one hot
     device on one host is attributable from Prometheus alone."""
     recs = []

@@ -603,7 +603,8 @@ def test_dag_allreduce_equals_ray_tpu():
 
 def test_device_edge_record_torch():
     """A kind=device edge lands in the GCS dag record with its transport
-    and device_arrays (the `rayt dag` rendering is ROADMAP item 2b)."""
+    and device_arrays (the CLI's `_print_dag` renders such a record:
+    tests/test_torch_surfaces.py)."""
     from ray_tpu_torch.core.gcs_dag_manager import GcsDagManager
 
     mgr = GcsDagManager()

@@ -9,11 +9,11 @@ DCN ring channels of a two-node cluster), ``tests/test_dag_observability.py``
 (channel stats, the GCS dag manager, the tick timeout's cursors, per-tick
 tracing) and ``tests/test_device_objects.py`` (the device plane's
 refusals). The tests ``torch_repoint.DESELECT`` leaves out run jax in their
-bodies (each has a torch twin in ``tests/test_torch_dag_device.py``), read
-``state_api`` or the CLI (ROADMAP.md item 2b), or shard an array over a
-mesh (item 6). test_dag's load-sensitive allreduce-fallback test runs as
-an entry of its own (SPLIT). Every selected test passes with no import of
-jax or ray_tpu in that process. The reference files stay untouched.
+bodies (each has a torch twin in ``tests/test_torch_dag_device.py``) or
+shard an array over a mesh (ROADMAP.md item 6). test_dag's load-sensitive
+allreduce-fallback test runs as an entry of its own (SPLIT). Every
+selected test passes with no import of jax or ray_tpu in that process. The
+reference files stay untouched.
 """
 
 import pytest
@@ -22,7 +22,7 @@ from torch_repoint import run_repointed
 
 # reference file -> the number of its tests that run in the file's entry
 # (all but DESELECT's and SPLIT's)
-FILES = {"test_dag": 15, "test_dag_dcn": 5, "test_dag_observability": 4,
+FILES = {"test_dag": 15, "test_dag_dcn": 5, "test_dag_observability": 7,
          "test_device_objects": 2}
 # load-sensitive tests (ROADMAP.md §3), each run as an entry of its own so
 # that a flake under load costs one count and not the file's: test_dag's

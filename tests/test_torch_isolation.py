@@ -39,7 +39,7 @@ def test_package_imports_no_jax_optax_or_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, bad = int(out[0]), out[1:]
-    assert n_modules >= 118
+    assert n_modules >= 128
     assert bad == [], f"ray_tpu_torch pulled in {bad}"
 
 
@@ -231,7 +231,13 @@ def test_every_module_is_walked():
             "ray_tpu_torch.rl.module_config",
             "ray_tpu_torch.rl.multi_agent", "ray_tpu_torch.rl.ppo",
             "ray_tpu_torch.rl.replay", "ray_tpu_torch.rl.sac",
-            "ray_tpu_torch.rl.vtrace"} <= names
+            "ray_tpu_torch.rl.vtrace", "ray_tpu_torch.state_api",
+            "ray_tpu_torch.__main__", "ray_tpu_torch.scripts",
+            "ray_tpu_torch.scripts.cli", "ray_tpu_torch.dashboard",
+            "ray_tpu_torch.dashboard.head", "ray_tpu_torch.client",
+            "ray_tpu_torch.client.server",
+            "ray_tpu_torch.util.multiprocessing",
+            "ray_tpu_torch.util.joblib_backend"} <= names
 
 
 _RL_TORCH_FREE = """
@@ -363,6 +369,67 @@ def test_serve_plane_imports_no_torch():
                          env=env, capture_output=True, text=True, timeout=120,
                          check=True).stdout.strip()
     assert out == "[]"
+
+
+_SURFACES_IMPORT = """
+import sys
+import ray_tpu_torch.state_api
+import ray_tpu_torch.scripts.cli
+import ray_tpu_torch.dashboard
+import ray_tpu_torch.dashboard.head
+import ray_tpu_torch.client
+import ray_tpu_torch.client.server
+import ray_tpu_torch.util.multiprocessing
+import ray_tpu_torch.util.joblib_backend
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu")))
+"""
+
+
+def test_surfaces_import_no_torch():
+    """state_api, the CLI, the dashboard, the client and the rest of util
+    import neither torch nor jax: `status` on a CPU box builds no CUDA
+    context, and a thin client needs neither."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SURFACES_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]"
+
+
+_STATUS = """
+import subprocess, sys
+import ray_tpu_torch as rt
+from ray_tpu_torch.core.runtime import get_runtime_context
+rt.init(num_cpus=1)
+gcs = get_runtime_context().gcs_address
+try:
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "ray_tpu_torch", "status",
+         "--address", f"{gcs.host}:{gcs.port}"],
+        capture_output=True, text=True, timeout=60, check=True)
+finally:
+    rt.shutdown()
+print(proc.stdout)
+imported = [ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln]
+print("IMPORTED", "ray_tpu_torch.scripts.cli" in imported,
+      sorted({m.split(".")[0] for m in imported}
+             & {"torch", "jax", "ray_tpu"}))
+"""
+
+
+def test_cli_status_imports_no_torch():
+    """`python -m ray_tpu_torch status --address ...` prints the cluster
+    and never imports torch (read from the process's own -X importtime
+    log)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _STATUS], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert "resources:" in out and "CPU: " in out
+    assert out.splitlines()[-1] == "IMPORTED True []"
 
 
 _SERVE_DRIVER = r"""

@@ -647,19 +647,22 @@ def _fake_cw():
     return _FakeCW()
 
 
-def test_rl_learner_emits_step_waterfall_torch():
+def test_rl_learner_emits_step_waterfall_torch(monkeypatch):
     """Twin of test_train_observability.py::
     test_rl_learner_emits_step_waterfall, reading the learner's
-    StepRecorder records directly (state_api is ROADMAP.md item 2b)."""
+    StepRecorder records directly: the run record rides the recorder's
+    own buffer ahead of the steps, so a flush of the steps carries it."""
     from ray_tpu_torch.rl.impala import IMPALAConfig, IMPALALearner
+    from ray_tpu_torch.train import telemetry
 
+    fake = _fake_cw()
+    monkeypatch.setattr(telemetry._TrainPublisher, "_core_worker",
+                        staticmethod(lambda: fake))
     learner = IMPALALearner(
         cloudpickle.dumps(rlm.MLPModuleConfig(4, 2, hidden=(16,))),
         cloudpickle.dumps(IMPALAConfig(num_gpus_per_learner=0)))
     rec = learner._recorder
     assert rec is not None and rec.experiment == "rl:impala"
-    fake = _fake_cw()
-    rec._pub._core_worker = lambda: fake
     T, B = 8, 4
     rng = np.random.default_rng(0)
     for _ in range(3):
@@ -676,6 +679,8 @@ def test_rl_learner_emits_step_waterfall_torch():
     rec.end_phase()
     with rec._pub._lock:
         recs = list(rec._pub._buf)
+    assert recs[0]["kind"] == "run"
+    assert recs[0]["run_id"] == learner._run_id
     steps = [r for r in recs if r["kind"] == "step"]
     assert [s["step"] for s in steps] == [1, 2, 3]
     assert all(s["run_id"] == learner._run_id for s in steps)

@@ -329,8 +329,14 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
     rt.kill(h)
     from ray_tpu_torch.cluster_utils import Cluster
 
-    with pytest.raises(NotImplementedError, match="dashboard.*item 2b"):
-        Cluster(dashboard_port=0)
+    # the dashboard is ported (item 2b): a Cluster starts it; the
+    # autoscaler still raises, naming its item
+    dash = Cluster(dashboard_port=0, initialize_head=True)
+    try:
+        assert dash.dashboard_port > 0
+    finally:
+        dash.shutdown()
+    assert rt.state_api.list_nodes is not None
     with pytest.raises(NotImplementedError, match="autoscaler.*item 8"):
         Cluster(autoscaler_config={"node_types": []})
     assert rt.dag.InputNode is not None
@@ -345,16 +351,30 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
 
 
 def test_head_main_refuses_the_dashboard_and_autoscaler():
+    """The head now starts the dashboard (item 2b is ported) and serves
+    it; it still refuses the autoscaler, naming item 8."""
     from argparse import Namespace
+    from urllib.request import urlopen
 
+    from ray_tpu_torch._internal.spawn import child_env, fast_python_argv
     from ray_tpu_torch.core import head_main
 
+    head = subprocess.Popen(
+        fast_python_argv("ray_tpu_torch.core.head_main")
+        + ["--gcs-only", "--dashboard-port", "0"],
+        stdout=subprocess.PIPE, env=child_env(ROOT), text=True)
+    try:
+        info = json.loads(head.stdout.readline())
+        assert info["dashboard_port"] > 0
+        with urlopen(f"http://127.0.0.1:{info['dashboard_port']}"
+                     "/api/cluster", timeout=30) as r:
+            assert "scheduling" in json.loads(r.read())
+    finally:
+        head.terminate()
+        head.wait(timeout=30)
     args = Namespace(gcs_port=0, resources="{}", labels="{}",
-                     persist_path="", gcs_only=True, autoscaler_config="",
-                     dashboard_port=0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        asyncio.run(head_main.run(args))
-    args.dashboard_port, args.autoscaler_config = -1, "{}"
+                     persist_path="", gcs_only=True, autoscaler_config="{}",
+                     dashboard_port=-1)
     with pytest.raises(NotImplementedError, match="item 8"):
         asyncio.run(head_main.run(args))
 

@@ -6,20 +6,29 @@ statements, ``num_tpus`` -> ``num_gpus``, the "TPU" resource -> "GPU" where
 a resource dict or a resource read names it) plus the file's own in
 FILE_REWRITES, and runs the copy under pytest in a subprocess beside a
 conftest that imports no jax and keeps the reference conftest's per-test
-time cap and its ``local_cluster`` fixture. The tests named in DESELECT for
-that file are deselected; each names why, the ROADMAP.md item that brings
-it and the torch test that stands in for it. It asserts that pytest exits
-0, that every selected test of the file passed, and that an import hook
-installed before any test saw no import of jax or ray_tpu in that process.
-The reference files stay untouched.
+time cap and its ``local_cluster`` fixture. The copy sits in a directory
+named tests/ (with the helpers SUPPORT_FILES lists, re-pointed, beside
+it), the repo's root is on the subprocess's PYTHONPATH, and tier-1's
+``-m "not slow"`` selects its tests unless the caller names other
+markers. A copy in which a string literal would still start the reference
+in another process (``-m ray_tpu``, an import inside quotes) is refused
+before it runs: the import hook sees only the pytest process. The tests
+named in DESELECT for that file are deselected; each names why, the
+ROADMAP.md item that brings it and the torch test that stands in for it.
+It asserts that pytest exits 0, that every selected test of the file
+passed, and that an import hook installed before any test saw no import
+of jax or ray_tpu in that process. The reference files stay untouched.
 """
 
+import ast
 import dataclasses
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tokenize
 import xml.etree.ElementTree as ET
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,24 +51,73 @@ TRAIN_REWRITES = (
     (r"\bJaxTrainer\b", "TorchTrainer"),
     (r"\bScalingConfig\(", "ScalingConfig(use_gpu=False, "),
 )
-# test_dag_observability imports the bare package name and calls it
-# (``import ray_tpu; ray_tpu.init(...)``): the port, under that name
-DAG_OBS_REWRITES = (
+# test_dag_observability, test_drain, test_train_observability and
+# test_chaos import the bare package name and call it (``import ray_tpu;
+# ray_tpu.init(...)``): the port, under that name
+BARE_NAME_REWRITES = (
     (r"^(\s*)import ray_tpu_torch$", r"\1import ray_tpu_torch as ray_tpu"),
 )
-# the RL files' own rewrite: every algorithm config asks for a learner on
+# the RL files' own rewrite (and test_train_observability's, whose IMPALA
+# learner emits a waterfall): every algorithm config asks for a learner on
 # the CPU (the port's default leases it a GPU, as the reference's learners
 # take the CPU when jax_platforms=cpu pins it)
 RL_REWRITES = (
     (r"\b(PPO|IMPALA|APPO|DQN|SAC|MultiAgentPPO)Config\(",
      r"\1Config(num_gpus_per_learner=0, "),
 )
+# files that start the package from inside a string: the CLI run as
+# `python -m ray_tpu` (and its node's "TPU" read), the client proxy
+# spawned from a `-c` string, a submitted job's script
+STATE_CLI_REWRITES = (
+    (r'"-m", "ray_tpu"', '"-m", "ray_tpu_torch"'),
+    (r'\["TPU"\]', '["GPU"]'),
+    # the port's microbenchmark puts its device legs on the card unless
+    # asked for the CPU
+    (r'"microbenchmark",$', '"microbenchmark", "--device", "cpu",'),
+)
+CLIENT_REWRITES = (
+    (r'"from ray_tpu\.client\.server import main; "',
+     '"from ray_tpu_torch.client.server import main; "'),
+)
+DASHBOARD_REWRITES = (
+    (r'"import ray_tpu as rt\\n"', r'"import ray_tpu_torch as rt\\n"'),
+)
+# test_scheduling_policy names the "TPU" resource as a key inside dicts
+# that hold other keys first: every "TPU" key, the resource
+RESOURCE_KEY_REWRITES = (
+    (r'"TPU":', '"GPU":'),
+)
+# files that find the repo from their own path (its writer scripts, the
+# tools dir): the repo's root, as the copy lives elsewhere
+REPO_PATH_REWRITES = (
+    (r"os\.path\.dirname\(os\.path\.dirname\(os\.path\.abspath\("
+     r"__file__\)\)\)", repr(ROOT)),
+)
 FILE_REWRITES = {"test_rl": RL_REWRITES, "test_sac": RL_REWRITES,
                  "test_rl_multi_agent": RL_REWRITES,
                  "test_train": TRAIN_REWRITES,
                  "test_ingest_train": TRAIN_REWRITES,
-                 "test_train_observability": TRAIN_REWRITES,
-                 "test_dag_observability": DAG_OBS_REWRITES}
+                 "test_train_observability": TRAIN_REWRITES
+                 + BARE_NAME_REWRITES + RL_REWRITES,
+                 "test_dag_observability": BARE_NAME_REWRITES,
+                 "test_drain": BARE_NAME_REWRITES,
+                 "test_state_cli": STATE_CLI_REWRITES,
+                 "test_client": CLIENT_REWRITES,
+                 "test_dashboard": DASHBOARD_REWRITES,
+                 "test_scheduling_policy": RESOURCE_KEY_REWRITES,
+                 "test_native_store_stress": REPO_PATH_REWRITES,
+                 "test_chaos": BARE_NAME_REWRITES + RL_REWRITES}
+
+# helper modules outside tests/ that a file imports from the repo: each is
+# copied with REWRITES to the same relative path beside the copy (the
+# file finds it from its own path: test_chaos puts ../tools on sys.path)
+SUPPORT_FILES = {"test_chaos": ("tools/chaos.py", "tools/envelope_bench.py")}
+
+# a string literal that would start the reference package in another
+# process: a module name on its own (what `-m` takes) or an import
+# statement inside the string
+_STARTS_REFERENCE = re.compile(
+    r"^ray_tpu(\.\w+)*$|\b(import|from)\s+ray_tpu\b|-m\s+ray_tpu\b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,13 +157,22 @@ DESELECT = {
         "test_recorder_wrap_jit_compile_and_retrace": Deselect(
             _JAX_BODY + " (jnp arrays through wrap_jit)", None,
             _TWINS + "test_recorder_wrap_jit_torch_tensors"),
-        "test_e2e_run_waterfall_compile_memory_and_cli": Deselect(
-            "reads state_api and the rayt CLI", "2b", None),
-        "test_pause_ingest_stall_drill": Deselect(
-            "reads state_api", "2b", None),
-        "test_rl_learner_emits_step_waterfall": Deselect(
-            "reads state_api", "2b",
-            _RL_TWINS + "test_rl_learner_emits_step_waterfall_torch"),
+    },
+    "test_util": {
+        "test_site_import_modes": Deselect(
+            "the port drops the PJRT site-import modes of _internal/spawn "
+            "(no PJRT plugin to defer)", None,
+            "tests/test_torch_surfaces.py::"
+            "test_spawn_has_no_site_import_modes"),
+    },
+    "test_cluster_events": {
+        "test_chaos_lite_kill_worker_and_node": Deselect(
+            "its cluster runs the autoscaler with a fake provider", "8",
+            None),
+    },
+    "test_dashboard": {
+        "test_data_endpoint_reports_exchange_counters": Deselect(
+            "reads ray_tpu.data's exchange", "8", None),
     },
     "test_rl": {
         "test_vtrace_on_policy_reduces_to_returns": Deselect(
@@ -136,14 +203,6 @@ DESELECT = {
             _JAX_BODY + " (jnp device-edge payloads)", None,
             _DAG_TWINS
             + "test_mixed_kind_graph_with_allreduce_fast_path_torch"),
-    },
-    "test_dag_observability": {
-        "test_dag_record_lifecycle": Deselect(
-            "reads state_api", "2b", None),
-        "test_stall_watchdog_e2e_dead_runner": Deselect(
-            "reads state_api and the rayt CLI", "2b", None),
-        "test_dag_state_disabled_no_records": Deselect(
-            "reads state_api", "2b", None),
     },
     "test_device_objects": {
         "test_put_device_get_same_process_zero_copy": Deselect(
@@ -242,6 +301,29 @@ def repoint(src: str, extra: tuple = ()) -> str:
     return "\n".join(lines)
 
 
+def strings_starting_the_reference(src: str) -> list[tuple[int, str]]:
+    """(line, text) of each string literal in `src` that would start the
+    reference package: ``"-m", "ray_tpu"``, ``"from ray_tpu.x import y"``,
+    ``"import ray_tpu"`` (f-string parts included)."""
+    middle = getattr(tokenize, "FSTRING_MIDDLE", None)  # 3.12 on
+    found = []
+    for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+        if tok.type == tokenize.STRING:
+            try:
+                text = ast.literal_eval(tok.string)
+            except (SyntaxError, ValueError):  # an f-string before 3.12
+                text = tok.string
+        elif tok.type == middle:
+            text = tok.string
+        else:
+            continue
+        if isinstance(text, bytes):
+            text = text.decode("latin-1")
+        if _STARTS_REFERENCE.search(text.strip()):
+            found.append((tok.start[0], text))
+    return found
+
+
 def _defines(path: str, test: str) -> bool:
     with open(path) as f:
         return re.search(rf"^def {test}\(", f.read(), re.M) is not None
@@ -262,30 +344,54 @@ def check_deselects(name: str) -> dict:
     return entries
 
 
-def run_repointed(name: str, n_tests: int, tmp_path, timeout: float,
-                  split: tuple = (), only: str | None = None) -> None:
-    """Run tests/<name>.py re-pointed at the port in a pytest subprocess
-    (at most `timeout` s), its DESELECT entries and the tests in `split`
-    (each run as an entry of its own) left out, or only the test `only`,
-    and assert that all `n_tests` selected tests passed with no import of
-    jax or ray_tpu."""
+def repointed_copy(name: str) -> str:
+    """tests/<name>.py with its rewrites, after checking that no string
+    literal left in it starts the reference package in a subprocess."""
     with open(os.path.join(ROOT, "tests", f"{name}.py")) as f:
         copy = repoint(f.read(), FILE_REWRITES.get(name, ()))
     assert "ray_tpu_torch" in copy
+    starts = strings_starting_the_reference(copy)
+    assert not starts, (
+        f"{name}.py still starts the reference from a string: {starts}")
+    return copy
+
+
+def run_repointed(name: str, n_tests: int, tmp_path, timeout: float,
+                  split: tuple = (), only: str | None = None,
+                  markers: str = "not slow") -> None:
+    """Run tests/<name>.py re-pointed at the port in a pytest subprocess
+    (at most `timeout` s), its DESELECT entries and the tests in `split`
+    (each run as an entry of its own) left out, or only the test `only`,
+    selecting the tests that `markers` matches (tier-1's "not slow" by
+    default), and assert that all `n_tests` selected tests passed with no
+    import of jax or ray_tpu."""
+    copy = repointed_copy(name)
     deselect = [f"--deselect={name}.py::{test}"
                 for test in (*check_deselects(name), *split)]
-    target = str(tmp_path) if only is None else f"{name}.py::{only}"
-    (tmp_path / f"{name}.py").write_text(copy)
-    (tmp_path / "conftest.py").write_text(CONFTEST.format(root=ROOT))
-    report, xml = tmp_path / "imports.json", tmp_path / "junit.xml"
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["RAYT_REPOINT_REPORT"] = str(report)
+    # the copy sits in a directory named tests/, as the reference file
+    # does (a callsite the runtime records reads "tests/<file>:<line>")
+    work = tmp_path / "tests"
+    work.mkdir(exist_ok=True)
+    target = str(work) if only is None else f"{name}.py::{only}"
+    (work / f"{name}.py").write_text(copy)
+    for rel in SUPPORT_FILES.get(name, ()):
+        with open(os.path.join(ROOT, rel)) as f:
+            support = repoint(f.read())
+        assert not strings_starting_the_reference(support), rel
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text(support)
+    (work / "conftest.py").write_text(CONFTEST.format(root=ROOT))
+    report, xml = work / "imports.json", work / "junit.xml"
+    # the repo's root on the path, as where the reference runs from it: a
+    # `python -c` child the test starts finds the port
+    env = {**os.environ, "PYTHONPATH": ROOT,
+           "RAYT_REPOINT_REPORT": str(report)}
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-p", "no:xdist", "-p", "no:randomly", f"--junitxml={xml}",
-         f"--rootdir={tmp_path}", f"--confcutdir={tmp_path}",
-         *deselect, target],
-        cwd=tmp_path, env=env, capture_output=True, text=True,
+         f"--rootdir={work}", f"--confcutdir={work}",
+         "-m", markers, *deselect, target],
+        cwd=work, env=env, capture_output=True, text=True,
         timeout=timeout)
     tail = (proc.stdout + proc.stderr)[-4000:]
     assert proc.returncode == 0, tail

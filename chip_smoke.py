@@ -113,7 +113,8 @@ caught, so any failure exits non-zero):
    rl_offpolicy, rl_multi_agent, on that cluster once the GPU is free
    again: RL with its learners on the card and its env runners on the
    CPU. rl_parity: each algorithm's update (PPO, IMPALA and APPO with the
-   MLP and the CNN, DQN, SAC with the same normal draws) on the card
+   MLP and the CNN, DQN, SAC with the same normal draws, the offline BC
+   and CQL) on the card
    against the CPU in f32 with TF32 off for matmul and cuDNN, to 1e-4
    relative L2 per leaf, with the update's ms on each. Then the learning
    runs of the reference's tests, each against its gate: PPO on CartPole
@@ -125,6 +126,29 @@ caught, so any failure exits non-zero):
    lives and 1 after stop(), checks that no env runner has a CUDA context
    after reading its weights, and counts the flash launches of its
    processes (0: RL runs no attention).
+14b. data_corpus_410m, tune_410m, rl_offline, on that cluster once the GPU
+   is free again. data_corpus_410m: build_corpus over a raw jsonl corpus
+   made from --seed (16 files, 15% duplicate documents): content-hash
+   dedup (hash exchange), a byte tokenizer into the 410m vocabulary, the
+   random_shuffle exchange, 8 npz shards of at least 2M tokens; the
+   shard-task token stream equals the inline one bit for bit; then a
+   TorchTrainer worker leased the GPU runs the 410m train step (b8 s2048,
+   bf16, remat "dots", flash) on what its ingest (seq_len 2048, 8 blocks,
+   shard_tasks=True) delivers, 5 steps: 48/24/24 flash launches a step,
+   its first loss equal to an in-process step's on the same batch from
+   the same weights to 1e-6 relative, the GPU 0 free while it lives and 1
+   after; the build's wall s and exchange stats, data_wait ms per step
+   beside the step ms and tokens/s. tune_410m: Tuner(lora_finetune_loop)
+   at the 410m's full width (rank 16 on wq wk wv wo), a grid of 4 learning
+   rates under ASHA (max_t 6, grace 2) on the loss, each trial a
+   TrainWorker leased half the GPU: 48/24/24 launches a step in every
+   trial, two trials at once while the GPU reads 0 free (1 after), at
+   least one trial stopped before max_t, the best full-length trial's
+   losses equal to the recipe's in-process steps at its lr to 1e-6
+   relative; the fit's wall s, each trial's step ms, the time to the first
+   result. rl_offline: test_rl_offline's expert CartPole dataset through
+   the data plane; BC (4 iterations) and CQL (3 x 400 updates) with their
+   learners on the card, each scoring above 60; no flash launch.
 
 15. surfaces_410m, once the runtime cluster is shut down: the runtime's
    surfaces on a head started through the CLI. `python -m ray_tpu_torch
@@ -176,11 +200,22 @@ runs device, build and the RL phases alone, on a cluster of their own.
 
 runs device, build, train_410m (for its step time) and surfaces_410m
 alone.
+
+    python3 chip_smoke.py --data
+
+runs device, build, train_410m and lora_train_410m (for their step
+times), then rl_parity and the data plane, Tune and offline RL phases
+alone, on a cluster of their own.
+
+    python3 chip_smoke.py --seed N [...]
+
+makes data_corpus_410m's raw corpus from seed N (default 0).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1360,7 +1395,9 @@ def warm_up(eng) -> None:
         collect(eng, [1 + i] * m, max_new_tokens=4)
 
 
-SERVE_REQUESTS = 200
+# 120 (75 s of traffic at SERVE_RATE) keeps the whole script well inside
+# its 1200 s limit
+SERVE_REQUESTS = 120
 # requests/s: four fifths of the ~2/s the engine sustains at the 410m
 # preset on an H100 (--serve-sweep 1,1.5,2,3 60), where the tails are judged
 SERVE_RATE = 1.6
@@ -3202,14 +3239,15 @@ def phase_rl_parity() -> dict:
     params agree to 1e-4 relative L2 per leaf. The shapes are the learning
     phases': PPO 2048 timesteps in minibatches of 256 for 6 epochs; IMPALA
     and APPO [64, 8] CartPole and [32, 32, 10, 10, 1] Catch batches; DQN
-    and SAC minibatches of 128 (SAC with the same normal draws on both).
+    and SAC minibatches of 128 (SAC with the same normal draws on both),
+    BC and CQL of 512.
     Also the update's wall ms on each device (the median of 3 timed calls
     after those two)."""
     import cloudpickle
     import numpy as np
     import torch
 
-    from ray_tpu_torch.rl import dqn, impala, learner, module, sac
+    from ray_tpu_torch.rl import dqn, impala, learner, module, offline, sac
 
     t0 = time.perf_counter()
     rows = {}
@@ -3261,6 +3299,15 @@ def phase_rl_parity() -> dict:
                                 alpha_lr=3e-3, initial_alpha=0.2), dev),
             lambda lr, i: {k: float(v) for k, v in lr.update(
                 lr.to_device(sbatch), noise=noise[i]).items()})
+        # the offline learners at test_rl_offline's minibatch of 512
+        obatch = rl_replay_batch(rng, 4, 512)
+        compare("bc", lambda dev: offline.BCLearner(
+            mlp, offline.BCConfig(lr=3e-3), dev),
+            lambda lr, i: float(lr.update(lr.to_device(
+                {k: obatch[k] for k in ("obs", "actions")}))))
+        compare("cql", lambda dev: offline.CQLLearner(
+            mlp, offline.CQLConfig(), dev),
+            lambda lr, i: float(lr.update(lr.to_device(obatch))))
         torch.cuda.synchronize()
     ok = all(r["rel_l2"] <= r["tolerance"] for r in rows.values())
     emit("rl_parity", updates=rows, phase_s=time.perf_counter() - t0,
@@ -3642,6 +3689,519 @@ def phase_rl_multi_agent() -> dict:
     return _launch_sum(launches)
 
 
+# ------------------------------------- the data plane, Tune, offline RL
+CORPUS_FILES, CORPUS_DOCS_PER_FILE = 16, 1100
+CORPUS_DUP_SHARE = 0.15        # share of raw documents that copy another
+CORPUS_SHARDS = 8
+# build_corpus's all-to-alls, in order: each must have reported its stats
+CORPUS_EXCHANGES = ["dedup", "shuffle", "repartition"]
+CORPUS_MIN_TOKENS = 2_000_000
+CORPUS_410M_STEPS = 5          # train steps on delivered batches
+CORPUS_TIMED_FROM = 1          # step ms and data_wait from step 1 on
+BYTE_OFFSET, EOS_ID = 3, 2     # ids 0-2 reserved (pad, bos, eos)
+# proposed in this order, two at a time: on the 410m a larger lr reads a
+# higher loss at ASHA's rung (step 2: one update on batch 0, the loss on
+# batch 1), so the second pair meets better peers there
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_MAX_T, TUNE_GRACE = 6, 2
+TUNE_GPU_SHARE = 0.5
+
+
+def byte_tokenize(text: str) -> list:
+    """A deterministic byte tokenizer into the 410m vocabulary: each UTF-8
+    byte b is the id b + BYTE_OFFSET (3..258 of 32000)."""
+    return [b + BYTE_OFFSET for b in text.encode("utf-8")]
+
+
+def write_raw_corpus(root: str, seed: int) -> dict:
+    """CORPUS_FILES jsonl files of CORPUS_DOCS_PER_FILE documents each,
+    made from `seed` with numpy: words of 2-9 letters, 10-50 words a
+    document, CORPUS_DUP_SHARE of the documents copies of earlier ones
+    (across files too)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, int(n)))
+             for n in rng.integers(2, 10, 4096)]
+    docs, dups = [], 0
+    for i in range(CORPUS_FILES * CORPUS_DOCS_PER_FILE):
+        if docs and rng.random() < CORPUS_DUP_SHARE:
+            docs.append(docs[int(rng.integers(0, len(docs)))])
+            dups += 1
+        else:
+            picks = rng.integers(0, len(words), int(rng.integers(10, 51)))
+            docs.append(f"{i}: " + " ".join(words[j] for j in picks))
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    per = CORPUS_DOCS_PER_FILE
+    for f in range(CORPUS_FILES):
+        with open(os.path.join(raw, f"part-{f:03d}.jsonl"), "w") as out:
+            for text in docs[f * per:(f + 1) * per]:
+                out.write(json.dumps({"text": text}) + "\n")
+    return {"path": raw, "files": CORPUS_FILES, "docs": len(docs),
+            "duplicates": dups, "distinct": len(set(docs)),
+            "bytes": sum(len(d.encode()) for d in docs)}
+
+
+def recording_executor():
+    """A StreamingExecutor that keeps every exchange's stats (the
+    executor itself keeps the last one's)."""
+    import dataclasses
+
+    from ray_tpu_torch.data.executor import StreamingExecutor
+
+    class RecordingExecutor(StreamingExecutor):
+        def __init__(self):
+            super().__init__()
+            self.exchanges = []
+
+        def _exchange(self, spec, refs):
+            out = super()._exchange(spec, refs)
+            self.exchanges.append({"op": spec.name, **dataclasses.asdict(
+                self.last_exchange)})
+            return out
+
+    return RecordingExecutor()
+
+
+def corpus_410m_loop(config: dict):
+    """In a TrainWorker leased the GPU: the 410m train step (config_410m,
+    b8 s2048, bf16, remat "dots", flash; params from seed 0, AdamW) on
+    each batch the session's ingest delivers, CORPUS_410M_STEPS steps,
+    targets the rolled tokens. Saves the consumed token stream to config["trace"]
+    and reports per step the loss, the ingest's queue wait (data_wait)
+    and the step's end; with the flash launch counters, the GPU free
+    while the worker lives and its device."""
+    warm = "torch" in sys.modules
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+    from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+
+    entered = time.perf_counter()
+    deadline = time.monotonic() + 30   # the view follows a lease
+    gpu_free = rt.available_resources().get("GPU")
+    while gpu_free != 0.0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+        gpu_free = rt.available_resources().get("GPU")
+    ctx = train.get_context()
+    device = ctx.get_device()
+    cfg = config_410m()
+    step, state = build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4),
+        llama.init_params(cfg, seed=0, device=device), device=device)
+    ingest = ctx.get_ingest(device=device)
+    reset_launches()                   # counts: the main path only
+    losses, waits, ends, consumed = [], [], [], []
+    t_first = time.perf_counter()
+    for _ in range(config["steps"]):
+        batch = next(ingest)
+        waits.append(ingest.stats.last_stall_s * 1e3)
+        tokens = batch["tokens"].long()
+        state, aux = step(state, {"tokens": tokens,
+                                  "targets": torch.roll(tokens, -1, 1)})
+        losses.append(aux["loss"].item())
+        ends.append(time.perf_counter())
+        consumed.append(tokens.cpu().numpy().astype(np.int32))
+    ingest.close()
+    np.save(config["trace"], np.stack(consumed))
+    timed = ends[CORPUS_TIMED_FROM - 1:]
+    step_ms = (timed[-1] - timed[0]) / (len(timed) - 1) * 1e3
+    train.report({
+        "losses": losses, "data_wait_ms": waits, "step_ms": step_ms,
+        "first_step_ms": (ends[0] - t_first) * 1e3,
+        "tokens_per_s": BATCH_410M * SEQ_410M / step_ms * 1e3,
+        "launches": dict(launches), "gpu_free_in_worker": gpu_free,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "warm_worker": warm, "setup_s": t_first - entered,
+        "device": str(device)})
+
+
+def phase_data_corpus_410m(step_ms: float, seed: int) -> dict:
+    """build_corpus (content-hash dedup through a hash exchange, the byte
+    tokenizer, the random_shuffle exchange, CORPUS_SHARDS packed npz
+    shards) over a raw jsonl corpus made from `seed`, then a TorchTrainer
+    worker leased the GPU trains the 410m step on what its ingest
+    (IngestSpec(seq_len=2048, batch_blocks=8, shard_tasks=True)) delivers.
+    Holds: at least CORPUS_MIN_TOKENS tokens built, every distinct
+    document kept once; the shard-task token stream equals the inline one
+    bit for bit (over the whole corpus, and the worker's consumed batches
+    against the inline ingest's first ones); 48/24/24 flash launches a
+    step in the worker; its first loss equals an in-process step's on the
+    same batch from the same weights to 1e-6 relative; the GPU free at 0
+    while the worker lives and at 1 after. Prints the build's wall s, each
+    exchange's stats, and the ingest's data_wait ms per step beside the
+    step ms and tokens/s (train_410m's in-process step beside them)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.data.llm_corpus import TokenCorpus, build_corpus
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+    from ray_tpu_torch.train import IngestSpec
+    from ray_tpu_torch.train.ingest import CorpusIngestIterator
+
+    t_phase = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        raw = write_raw_corpus(storage, seed)
+        out = os.path.join(storage, "corpus")
+        executor = recording_executor()
+        t0 = time.perf_counter()
+        paths = build_corpus(raw["path"], out, tokenize=byte_tokenize,
+                             num_shards=CORPUS_SHARDS, seed=seed,
+                             executor=executor)
+        build_s = time.perf_counter() - t0
+        docs = tokens = 0
+        for p in paths:
+            with np.load(p) as z:
+                docs += len(z["doc_lens"])
+                tokens += int(z["tokens"].size)
+        kw = dict(seq_len=SEQ_410M, eos_id=EOS_ID)
+        t0 = time.perf_counter()
+        with_tasks = np.stack([b["tokens"] for b in TokenCorpus(
+            out, shard_tasks=True, **kw)])
+        stream_tasks_s = time.perf_counter() - t0
+        inline = np.stack([b["tokens"] for b in TokenCorpus(out, **kw)])
+        spec = IngestSpec(paths=out, seq_len=SEQ_410M,
+                          batch_blocks=BATCH_410M, eos_id=EOS_ID,
+                          shard_tasks=True)
+        trace = os.path.join(storage, "consumed.npy")
+        result, wall_s, gpu_after = _trainer_fit(
+            rt, corpus_410m_loop,
+            {"steps": CORPUS_410M_STEPS, "trace": trace}, "corpus-410m",
+            storage, max_failures=0, ingest=spec)
+        m = result.metrics
+        consumed = np.load(trace)
+        plain = CorpusIngestIterator(dataclasses.replace(
+            spec, shard_tasks=False))
+        want = np.stack([next(plain)["tokens"]
+                         for _ in range(CORPUS_410M_STEPS)])
+        plain.close()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    # the in-process step on the worker's first batch, from the same
+    # weights (the first loss is the forward before any update)
+    torch.cuda.empty_cache()
+    cfg = config_410m()
+    step, state = build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4),
+        llama.init_params(cfg, seed=0, device="cuda"), device="cuda")
+    first = torch.tensor(consumed[0], device="cuda").long()
+    _, aux = step(state, {"tokens": first,
+                          "targets": torch.roll(first, -1, 1)})
+    in_process_loss = aux["loss"].item()
+    del step, state, aux
+    torch.cuda.empty_cache()
+    rel = abs(m["losses"][0] - in_process_loss) / abs(in_process_loss)
+    expected = {"flash_fwd": 2 * cfg.n_layers * CORPUS_410M_STEPS,
+                "flash_bwd_dq": cfg.n_layers * CORPUS_410M_STEPS,
+                "flash_bwd_dkv": cfg.n_layers * CORPUS_410M_STEPS}
+    waits = m["data_wait_ms"][CORPUS_TIMED_FROM:]
+    res = {"raw": {k: v for k, v in raw.items() if k != "path"},
+           "build_s": build_s, "exchanges": executor.exchanges,
+           "shards": len(paths), "docs_built": docs, "tokens_built": tokens,
+           "blocks": int(len(inline)), "stream_tasks_s": stream_tasks_s,
+           "stream_equal_inline": bool(np.array_equal(with_tasks, inline)),
+           "consumed_equal_inline": bool(np.array_equal(consumed, want)),
+           "losses": m["losses"], "in_process_first_loss": in_process_loss,
+           "first_loss_rel_diff": rel, "tolerance": 1e-6,
+           "data_wait_ms": m["data_wait_ms"],
+           "data_wait_ms_mean": statistics.mean(waits),
+           "step_ms": m["step_ms"], "first_step_ms": m["first_step_ms"],
+           "tokens_per_s": m["tokens_per_s"],
+           "train_410m_step_ms": step_ms,
+           "step_vs_in_process": m["step_ms"] / step_ms,
+           "launches": m["launches"], "expected_launches": expected,
+           "gpu_free_in_worker": m["gpu_free_in_worker"],
+           "gpu_free_after": gpu_after, "device": m["device"],
+           "warm_worker": m["warm_worker"], "setup_s": m["setup_s"],
+           "peak_mem_gb": m["peak_mem_gb"], "fit_wall_s": wall_s,
+           "steps": CORPUS_410M_STEPS, "batch": BATCH_410M, "seq": SEQ_410M,
+           "seed": seed, "phase_s": time.perf_counter() - t_phase,
+           "card": card_line()}
+    ok = (tokens >= CORPUS_MIN_TOKENS and docs == raw["distinct"]
+          and [x["op"] for x in executor.exchanges] == CORPUS_EXCHANGES
+          and res["stream_equal_inline"] and res["consumed_equal_inline"]
+          and m["launches"] == expected and rel <= 1e-6
+          and all(math.isfinite(x) for x in m["losses"])
+          and m["gpu_free_in_worker"] == 0.0 and gpu_after == 1.0
+          and m["device"] == "cuda" and len(paths) == CORPUS_SHARDS)
+    emit("data_corpus_410m", **res, ok=ok)
+    if not ok:
+        raise AssertionError("data_corpus_410m failed its checks")
+    return m["launches"]
+
+
+def tune_lora_loop(config: dict):
+    """lora_finetune_loop as a Tune trial, with what only the trial's
+    process reads added to each of its reports: the flash launch counts
+    since the loop began (set to 0 there), the GPU the cluster shows free,
+    the wall clock, whether the worker was warm, and its device. Every
+    step reports (ASHA decides on each report)."""
+    warm = "torch" in sys.modules
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
+    from ray_tpu_torch.train.recipes import lora_finetune_loop
+
+    entered = time.time()
+    report = train.report
+
+    def report_with_readings(metrics, checkpoint=None):
+        report({**metrics, "launches": dict(launches),
+                "gpu_free": rt.available_resources().get("GPU"),
+                "t": time.time(), "entered": entered, "warm_worker": warm,
+                "device": str(train.get_context().get_device())},
+               checkpoint=checkpoint)
+
+    reset_launches()                   # counts: the main path only
+    train.report = report_with_readings
+    try:
+        lora_finetune_loop({**config, "batch_fn": lambda i, rank:
+                            trainer_batch(i, rank, config["vocab"])})
+    finally:
+        train.report = report
+
+
+def lora_recipe_config(lr: float, steps: int) -> dict:
+    cfg = config_410m()
+    return {"preset": "410m", "lora_rank": LORA_RANK_410M,
+            "model_overrides": {"max_seq_len": SEQ_410M, "remat": True,
+                                "remat_policy": "dots",
+                                "attn_impl": "flash"},
+            "steps": steps, "report_every": 1, "batch_size": BATCH_410M,
+            "seq_len": SEQ_410M, "lr": lr, "seed": 0,
+            "vocab": cfg.vocab_size}
+
+
+def lora_recipe_in_process(lr: float, steps: int) -> list:
+    """The same recipe (lora_finetune_loop, same config and batches) in
+    this process on the card, under a train context of its own: its
+    reported losses."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.recipes import lora_finetune_loop
+
+    config = lora_recipe_config(lr, steps)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_ref_")
+    ctx = session.TrainContext(0, 1, storage, "tune-in-process", None,
+                               use_gpu=True)
+    session.set_context(ctx)
+    try:
+        lora_finetune_loop({**config, "batch_fn": lambda i, rank:
+                            trainer_batch(i, rank, config["vocab"])})
+        return [e["metrics"]["loss"] for e in ctx.drain_results()]
+    finally:
+        session.set_context(None)
+        shutil.rmtree(storage, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _ran_together(a: dict, b: dict) -> bool:
+    """Two trials' reports overlap in time, and each report of either made
+    while both were reporting reads 0 GPUs free."""
+    lo, hi = max(a["first_t"], b["first_t"]), min(a["last_t"], b["last_t"])
+    inside = [free for trial in (a, b)
+              for t, free in zip(trial["report_t"], trial["gpu_free"])
+              if lo <= t <= hi]
+    return lo < hi and bool(inside) and all(f == 0.0 for f in inside)
+
+
+def phase_tune_410m(lora_step_ms: float) -> dict:
+    """Tuner(lora_finetune_loop) at the 410m's full width (rank 16 on wq
+    wk wv wo, frozen base, b8 s2048, bf16, remat "dots", flash), a grid of
+    4 learning rates under ASHAScheduler(max_t=6, grace_period=2) on the
+    loss, each trial a TrainWorker leased {"GPU": 0.5}, so two trials
+    share the card. Holds: every trial's reports count 48/24/24 flash
+    launches a step; two trials ran at once while the GPU read 0 free,
+    and it reads 1 after; ASHA stopped at least one trial before max_t;
+    the reported losses of the best trial that ran to max_t equal the same
+    recipe's in-process steps at its lr to 1e-6 relative. Prints the fit's wall s, each
+    trial's step ms beside lora_train_410m's in-process step, and the time
+    to the first result."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train.config import RunConfig, ScalingConfig
+
+    cfg = config_410m()
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    t0 = time.time()
+    try:
+        grid = tune.Tuner(
+            tune_lora_loop,
+            param_space={**lora_recipe_config(0.0, TUNE_MAX_T),
+                         "lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=TUNE_MAX_T,
+                    grace_period=TUNE_GRACE)),
+            run_config=RunConfig(name="tune-410m", storage_path=storage),
+            scaling_config=ScalingConfig(resources_per_worker={
+                "CPU": 1, "GPU": TUNE_GPU_SHARE})).fit()
+        wall_s = time.time() - t0
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    gpu_after = _gpus_free(rt, 1.0)
+    trials = []
+    for t in grid._trials:
+        rs = t.results
+        steps = [r["step"] for r in rs]
+        per_step = [r["launches"] == {
+            "flash_fwd": 2 * cfg.n_layers * r["step"],
+            "flash_bwd_dq": cfg.n_layers * r["step"],
+            "flash_bwd_dkv": cfg.n_layers * r["step"]} for r in rs]
+        ts = [r["t"] for r in rs]
+        trials.append({
+            "lr": t.config["lr"], "status": t.status.value,
+            "losses": [r["loss"] for r in rs], "steps": steps,
+            "launches": rs[-1]["launches"] if rs else None,
+            "launches_per_step_ok": all(per_step) and bool(rs),
+            "gpu_free": [r["gpu_free"] for r in rs], "report_t": ts,
+            "first_t": ts[0], "last_t": ts[-1],
+            "step_ms": ((ts[-1] - ts[0]) / (len(ts) - 1) * 1e3
+                        if len(ts) > 1 else None),
+            "setup_s": ts[0] - rs[0]["entered"],
+            "warm_worker": rs[0]["warm_worker"],
+            "device": rs[0]["device"]})
+    together = [(a["lr"], b["lr"]) for i, a in enumerate(trials)
+                for b in trials[i + 1:] if _ran_together(a, b)]
+    stopped = [t["lr"] for t in trials if len(t["steps"]) < TUNE_MAX_T]
+    # the best of the trials ASHA let run to max_t, by its last loss
+    best = min((t for t in trials if len(t["steps"]) == TUNE_MAX_T),
+               key=lambda t: t["losses"][-1])
+    ref = lora_recipe_in_process(best["lr"], len(best["losses"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(best["losses"], ref)]
+    first_result_s = min(t["first_t"] for t in trials) - t0
+    for t in trials:
+        t["first_t"] -= t0
+        t["last_t"] -= t0
+        t["report_t"] = [x - t0 for x in t["report_t"]]
+    ok = (len(trials) == len(TUNE_LRS)
+          and all(t["launches_per_step_ok"] and t["device"] == "cuda"
+                  for t in trials)
+          and bool(together) and bool(stopped) and gpu_after == 1.0
+          and len(ref) == len(best["losses"]) and max(rel) <= 1e-6)
+    emit("tune_410m", trials=trials, ran_together=together,
+         stopped_before_max_t=stopped, best_lr=best["lr"],
+         best_losses=best["losses"], in_process_losses=ref,
+         rel_diff=rel, tolerance=1e-6, fit_wall_s=wall_s,
+         first_result_s=first_result_s,
+         lora_train_410m_step_ms=lora_step_ms,
+         step_vs_in_process=[t["step_ms"] / lora_step_ms for t in trials
+                             if t["step_ms"]],
+         gpu_free_after=gpu_after, gpu_share=TUNE_GPU_SHARE,
+         max_t=TUNE_MAX_T, grace_period=TUNE_GRACE, rank=LORA_RANK_410M,
+         batch=BATCH_410M, seq=SEQ_410M, card=card_line(), ok=ok)
+    if not ok:
+        raise AssertionError("tune_410m failed its checks")
+    return _launch_sum({t["lr"]: t["launches"] for t in trials})
+
+
+def _expert_policy(obs):
+    """test_rl_offline's CartPole heuristic (~120 mean return)."""
+    import numpy as np
+
+    theta, theta_dot = obs[:, 2], obs[:, 3]
+    return (theta + 0.5 * theta_dot > 0).astype(np.int32)
+
+
+def phase_rl_offline() -> dict:
+    """test_rl_offline's fixture and gates with the learners on the card:
+    CartPole expert transitions (6000 steps, 8 envs, seed 0) written with
+    write_offline_dataset, read back as read_npz NumpyBlocks; BC (2 epochs
+    an iteration, lr 3e-3, 4 iterations) and CQL (3 iterations of 400
+    updates), each scoring above 60 over 10 greedy episodes, both learners
+    on cuda, and no flash launch. Prints each iteration's update ms on the
+    card (the card-vs-CPU update times are rl_parity's bc and cql rows)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.data.block import is_numpy_block
+    from ray_tpu_torch.ops.cuda.flash_attention import reset_launches
+    from ray_tpu_torch.rl import (BCConfig, CQLConfig, collect_transitions,
+                                  read_offline_dataset,
+                                  write_offline_dataset)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        path = os.path.join(storage, "cartpole-expert")
+        rows = write_offline_dataset(collect_transitions(
+            "CartPole-v1", _expert_policy, num_steps=6000, num_envs=8,
+            seed=0), path, shard_rows=1024)
+        blocks = [rt.get(r) for r in
+                  read_offline_dataset(path)._iter_block_refs()]
+        dataset = {"rows": rows, "blocks": len(blocks),
+                   "numpy_blocks": all(is_numpy_block(b) for b in blocks),
+                   "obs_width": int(blocks[0].cols["obs"].shape[1])}
+        runs = {}
+        for name, algo, iters in (
+                ("bc", BCConfig(dataset_path=path, epochs_per_iteration=2,
+                                lr=3e-3, seed=0).build(), 4),
+                ("cql", CQLConfig(dataset_path=path,
+                                  updates_per_iteration=400,
+                                  seed=0).build(), 3)):
+            t1 = time.perf_counter()
+            results = [algo.train() for _ in range(iters)]
+            score = algo.evaluate(num_episodes=10)
+            # BC counts an iteration's updates, CQL all of them so far
+            updates = [r["num_updates"] if name == "bc"
+                       else algo.config.updates_per_iteration
+                       for r in results]
+            runs[name] = {
+                "device": str(algo.learner.device), "score": score,
+                "losses": [r["loss"] for r in results],
+                "iteration_s": [r["time_s"] for r in results],
+                "update_ms": [r["time_s"] / n * 1e3
+                              for r, n in zip(results, updates)],
+                "updates": sum(updates),
+                "wall_s": time.perf_counter() - t1}
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    launches = _rl_flash_launches()
+    ok = (rows >= 6000 and dataset["numpy_blocks"]
+          and dataset["obs_width"] == 4
+          and all(r["score"] > 60 and r["device"].startswith("cuda")
+                  for r in runs.values())
+          and runs["bc"]["losses"][-1] < runs["bc"]["losses"][0]
+          and not any(launches.values()))
+    emit("rl_offline", dataset=dataset, **runs, gate=60.0,
+         flash_launches=launches, phase_s=time.perf_counter() - t0,
+         card=card_line(), ok=ok)
+    if not ok:
+        raise AssertionError("rl_offline failed its checks")
+    return launches
+
+
+def phase_data_tune_offline(step_ms: float, lora_step_ms: float,
+                            seed: int) -> dict:
+    """The data plane, Tune and offline RL phases on the running cluster
+    (the GPU free). Returns each path's flash launches."""
+    return {"data_corpus_410m": phase_data_corpus_410m(step_ms, seed),
+            "tune_410m": phase_tune_410m(lora_step_ms),
+            "rl_offline": phase_rl_offline()}
+
+
 # --------------------------------------------------------- the surfaces
 SURFACES_STEPS = 3          # the job's train steps; ms from the 2nd on
 SURFACES_REST_S = 3.0       # the worker at rest after its last step
@@ -3989,13 +4549,13 @@ def phase_rl() -> dict:
 
 
 def phase_runtime(reference_losses: list, lora_step_ms: float,
-                  step_ms: float) -> dict:
+                  step_ms: float, seed: int) -> dict:
     """The runtime phases, serve_app_410m, the train runtime's phases and
     the compiled-graph phases on one cluster, shut down on the way out
     (its head and every worker stop with it). Returns the launch counts of
     the Serve apps' paths, of the train task, of the clean TorchTrainer
-    LoRA fit, of the DAG-driven train ticks and of the disaggregated
-    pools."""
+    LoRA fit, of the DAG-driven train ticks, of the disaggregated pools,
+    of the RL paths and of the data plane, Tune and offline RL paths."""
     import gc
 
     import torch
@@ -4024,9 +4584,50 @@ def phase_runtime(reference_losses: list, lora_step_ms: float,
                                                          llm_app_http)
         # then RL: learners on the card, env runners on the CPU
         paths.update(phase_rl())
+        # then the data plane, Tune and offline RL, once the GPU is free
+        paths.update(phase_data_tune_offline(step_ms, lora_step_ms, seed))
     finally:
         rt.shutdown()
     return paths
+
+
+def _on_cluster(run):
+    import ray_tpu_torch as rt
+
+    rt.init()
+    try:
+        return run()
+    finally:
+        rt.shutdown()
+
+
+# one part of the script alone: which of the 410m step's and the LoRA
+# step's readings it needs first ("full", "lora"), and what it runs with
+# them (the readings by name, the seed)
+PHASE_GROUPS = {
+    "--runtime": (("full", "lora"), lambda r, seed: phase_runtime(
+        r["full"]["losses"], r["lora"]["step_ms"], r["full"]["step_ms"],
+        seed)),
+    "--data": (("full", "lora"), lambda r, seed: _on_cluster(lambda: (
+        phase_rl_parity(), phase_data_tune_offline(
+            r["full"]["step_ms"], r["lora"]["step_ms"], seed)))),
+    "--rl": ((), lambda r, seed: _on_cluster(phase_rl)),
+    "--surfaces": (("full",), lambda r, seed: phase_surfaces_410m(
+        r["full"]["step_ms"])),
+}
+
+
+def run_group(flag: str, seed: int):
+    needs, run = PHASE_GROUPS[flag]
+    info = phase_device()
+    phase_build()
+    readings = {}
+    if "full" in needs:
+        readings["full"] = phase_train_410m(info["name"], STEPS_410M)
+    if "lora" in needs:
+        readings["lora"] = phase_lora_train_410m(info["name"], STEPS_410M,
+                                                 readings["full"])
+    run(readings, seed)
 
 
 def main(argv: list[str]) -> int:
@@ -4042,33 +4643,16 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     import ray_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    seed = 0            # the data plane's raw corpus
+    if argv[:1] == ["--seed"] and len(argv) >= 2:
+        seed, argv = int(argv[1]), argv[2:]
+
     if argv[:1] == ["--compare"] and len(argv) == 2:
         phase_device()
         compare(argv[1])
         return 0
-    if argv == ["--runtime"]:
-        info = phase_device()
-        phase_build()
-        full = phase_train_410m(info["name"], STEPS_410M)
-        lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
-        phase_runtime(full["losses"], lora_run["step_ms"], full["step_ms"])
-        return 0
-    if argv == ["--rl"]:
-        import ray_tpu_torch as rt
-
-        phase_device()
-        phase_build()
-        rt.init()
-        try:
-            phase_rl()
-        finally:
-            rt.shutdown()
-        return 0
-    if argv == ["--surfaces"]:
-        info = phase_device()
-        phase_build()
-        full = phase_train_410m(info["name"], STEPS_410M)
-        phase_surfaces_410m(full["step_ms"])
+    if len(argv) == 1 and argv[0] in PHASE_GROUPS:
+        run_group(argv[0], seed)
         return 0
     if argv[:1] == ["--serve-sweep"] and len(argv) == 3:
         from ray_tpu_torch.models import llama
@@ -4097,7 +4681,7 @@ def main(argv: list[str]) -> int:
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()
     paths.update(phase_runtime(full["losses"], lora_run["step_ms"],
-                               full["step_ms"]))
+                               full["step_ms"], seed))
     paths["surfaces_job_410m"] = phase_surfaces_410m(full["step_ms"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

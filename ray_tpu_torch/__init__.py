@@ -32,7 +32,7 @@ The train runtime (``train``: ``TorchTrainer``, the worker group, the
 session, checkpoints, corpus ingest, the recipes) runs a train loop in
 GPU-leased workers, restarting from the latest checkpoint after a worker
 dies; ``util.collective`` gives a group of workers its host-side barrier
-and allreduce, and ``data.llm_corpus`` the token corpus ingest reads::
+and allreduce::
 
     from ray_tpu_torch import train
     train.TorchTrainer(train.lora_finetune_loop,
@@ -54,6 +54,14 @@ to a decode pool over one::
     compiled = dag.experimental_compile()
     compiled.execute(0).get()
 
+The data plane (``data``: datasets over blocks, datasources and sinks,
+the streaming executor, the exchange, and ``data.llm_corpus``, whose
+``build_corpus`` dedups, tokenizes and shuffles a raw corpus into the token
+shards the ingest reads), Tune (``tune``: trials as GPU-leased
+TrainWorkers, a fraction of the card each if asked, under ASHA or PBT)
+and offline RL (``rl.offline``: BC and CQL learners on the card, reading
+recorded transitions through the data plane).
+
 The runtime's surfaces: ``state_api``, ``python -m ray_tpu_torch``
 (``scripts/cli``: start --head, status, list, job submit, train status,
 ...), the dashboard with job submission (``dashboard``, started by the
@@ -61,7 +69,7 @@ head with ``--dashboard-port``) and the thin client (``client``).
 
 The package never imports jax. Its root, ``core``, ``_internal``,
 ``util``, ``dag``, ``serve`` (all but ``serve.llm``), ``train``,
-``data``, ``state_api``, ``scripts``, ``dashboard`` and ``client`` never
+``data``, ``tune``, ``state_api``, ``scripts``, ``dashboard`` and ``client`` never
 import torch either (the train recipes import it inside
 their bodies): workers boot with ``python -S`` in about 100 ms and pay
 torch's import only when a task uses it, so ``resolve_device`` is a lazy
@@ -91,7 +99,7 @@ from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
 
 # subpackages of the reference that the port does not hold yet, by the
 # ROADMAP.md item that brings them
-_NOT_PORTED = {"collective": "6", "tune": "8"}
+_NOT_PORTED = {"collective": "6"}
 
 
 def __getattr__(name):
@@ -101,7 +109,7 @@ def __getattr__(name):
 
         return resolve_device
     if name in ("util", "serve", "models", "ops", "parallel", "experimental",
-                "train", "data", "dag", "rl", "state_api"):
+                "train", "data", "tune", "dag", "rl", "state_api"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

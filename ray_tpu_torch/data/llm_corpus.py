@@ -27,46 +27,23 @@ the continuation BIT-IDENTICAL to an uninterrupted run — the contract
 train checkpoints rely on (the cursor rides inside the model
 checkpoint; see train/ingest.py).
 
-This is the port of the ``TokenCorpus`` half of
-ray_tpu/data/llm_corpus.py, which the train ingest reads. Fanning shard
-loads out through the streaming executor (``shard_tasks=True``) and
-``build_corpus`` (the exchange-based corpus prep) ride the rest of
-``data/``, which is ROADMAP.md item 8: both raise ``NotImplementedError``.
+Shard loads can optionally fan out through the streaming executor
+(``shard_tasks=True``): shard files parse in remote tasks with the
+topology's bounded in-flight window while delivery order stays FIFO, so
+resume determinism is preserved.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import glob as globlib
-import os
 from typing import Iterator, Optional
 
 import numpy as np
 
+from ray_tpu_torch.data.datasource import _expand
+
 _TOKEN_DTYPE = np.int32
-_NOT_PORTED = ("is not ported yet: it rides the streaming executor and "
-               "the exchange of data/ (ROADMAP.md item 8)")
-
-
-def _expand(paths) -> list[str]:
-    """Files named by a path, a directory (recursively) or a glob, or a
-    list of those (a copy of ray_tpu/data/datasource.py:_expand)."""
-    if isinstance(paths, str):
-        paths = [paths]
-    out: list[str] = []
-    for p in paths:
-        if os.path.isdir(p):
-            out.extend(sorted(
-                f for f in globlib.glob(os.path.join(p, "**"), recursive=True)
-                if os.path.isfile(f)))
-        elif any(ch in p for ch in "*?["):
-            out.extend(sorted(globlib.glob(p)))
-        else:
-            out.append(p)
-    if not out:
-        raise FileNotFoundError(f"no files match {paths!r}")
-    return out
 
 
 # --------------------------------------------------------------- loading
@@ -162,18 +139,17 @@ class TokenCorpus:
     def __init__(self, paths, *, seq_len: int, dp_rank: int = 0,
                  world_size: int = 1, column: str = "tokens",
                  eos_id: Optional[int] = None, epochs: int = 1,
-                 shard_tasks: bool = False):
+                 shard_tasks: bool = False, max_in_flight: int = 4):
         if seq_len <= 0:
             raise ValueError(f"seq_len must be positive, got {seq_len}")
-        if shard_tasks:
-            raise NotImplementedError(f"TokenCorpus(shard_tasks=True) "
-                                      f"{_NOT_PORTED}")
         self.seq_len = seq_len
         self.column = column
         self.eos_id = eos_id
         self.epochs = epochs
         self.dp_rank = dp_rank
         self.world_size = world_size
+        self.shard_tasks = shard_tasks
+        self.max_in_flight = max_in_flight
         self.shards = assign_shards(_expand(paths), dp_rank, world_size)
         if not self.shards:
             raise ValueError(
@@ -193,9 +169,34 @@ class TokenCorpus:
         return self._cursor
 
     # ------------------------------------------------------------ loading
-    def _iter_shards(self, start: int) -> Iterator[list]:
+    def _iter_shards_inline(self, start: int) -> Iterator[list]:
         for pos in range(start, len(self.shards)):
             yield load_shard_docs(self.shards[pos], self.column)
+
+    def _iter_shards_tasks(self, start: int) -> Iterator[list]:
+        """Shard parsing fanned out as tasks through the streaming
+        topology: bounded in-flight prefetch, FIFO delivery (order is
+        what makes the cursor deterministic)."""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.data.executor import MapSpec, StreamingExecutor
+        from ray_tpu_torch.data.streaming_executor import ExecutionOptions
+
+        column = self.column
+
+        def parse(row: dict) -> dict:
+            return {"docs": load_shard_docs(row["path"], column)}
+
+        refs = (rt.put([{"path": p}]) for p in self.shards[start:])
+        executor = StreamingExecutor(execution_options=ExecutionOptions(
+            max_in_flight=self.max_in_flight))
+        out = executor.stream_pipeline(refs, [MapSpec("map", parse)])
+        for ref in out:
+            yield rt.get(ref)[0]["docs"]
+
+    def _iter_shards(self, start: int) -> Iterator[list]:
+        if self.shard_tasks:
+            return self._iter_shards_tasks(start)
+        return self._iter_shards_inline(start)
 
     # ---------------------------------------------------------- iteration
     def _drain(self) -> Iterator[dict]:
@@ -263,7 +264,80 @@ def read_token_corpus(paths, *, seq_len: int, dp_rank: int = 0,
 
 
 # ------------------------------------------------------- corpus building
-def build_corpus(inputs, out_dir: str, **kwargs) -> list[str]:
-    """The exchange-based corpus prep of the JAX package
-    (dedup, tokenize, shuffle, write ``.npz`` shards)."""
-    raise NotImplementedError(f"build_corpus {_NOT_PORTED}")
+def _write_token_shard(block, path: str) -> dict:
+    """Pack one block of tokenized documents into one .npz token shard
+    (``tokens`` flat + ``doc_lens`` — the TokenCorpus format). Retry
+    safe the datasink way: the final name is deterministic per shard
+    index, the temp name is per-pid, and os.replace commits atomically —
+    a driver-level write-task retry replaces, never duplicates."""
+    import os
+
+    from ray_tpu_torch.data.block import block_rows
+
+    docs = [np.asarray(r["tokens"], _TOKEN_DTYPE)
+            for r in block_rows(block)]
+    flat = (np.concatenate(docs) if docs
+            else np.empty(0, _TOKEN_DTYPE))
+    lens = np.asarray([len(d) for d in docs], np.int64)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:  # file handle: savez can't append .npz
+        np.savez(f, tokens=flat, doc_lens=lens)
+    os.replace(tmp, path)
+    return {"path": path, "docs": len(docs), "tokens": int(flat.size)}
+
+
+def build_corpus(inputs, out_dir: str, *, tokenize,
+                 text_column: str = "text", num_shards: int = 8,
+                 seed: int = 0, dedup: bool = True,
+                 tokenize_batch_size: int = 64,
+                 executor=None) -> list[str]:
+    """The flagship corpus-prep pipeline, end to end on the exchange
+    subsystem: multi-shard jsonl documents → content-hash dedup (hash
+    exchange + per-partition set) → ``tokenize`` via map_batches →
+    ``random_shuffle`` (pipelined shuffle exchange) → ``num_shards``
+    packed ``.npz`` token shards that :class:`TokenCorpus` / the train
+    ingest path (train/ingest.py) consume with the resumable-cursor
+    contract intact.
+
+    ``tokenize`` maps one document string to a list/array of token ids.
+    Returns the ordered list of written shard paths (deterministic
+    names, so ``TokenCorpus(out_dir, ...)`` re-expands identically)."""
+    import hashlib
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._internal.serialization import ship_code_by_value
+    from ray_tpu_torch.data.datasource import read_json
+
+    # `tokenize` rides inside _tok (a module-level closure here), so it
+    # would pickle by REFERENCE — register its driver-local module for
+    # by-value shipping like any MapSpec user fn
+    ship_code_by_value(tokenize)
+    ds = read_json(inputs)
+    if executor is not None:
+        ds._executor = executor
+    if dedup:
+        col = text_column
+
+        def _content_hash(row: dict) -> dict:
+            return {**row, "_ch": hashlib.sha1(
+                row[col].encode()).hexdigest()}
+
+        ds = ds.map(_content_hash).drop_duplicates("_ch")
+
+    def _tok(rows: list) -> dict:
+        return {"tokens": [tokenize(r[text_column]) for r in rows]}
+
+    ds = ds.map_batches(_tok, batch_size=tokenize_batch_size,
+                        batch_format="rows")
+    ds = ds.random_shuffle(seed=seed).repartition(num_shards)
+
+    os.makedirs(out_dir, exist_ok=True)
+    write_task = rt.remote(num_cpus=1)(_write_token_shard)
+    paths = [os.path.join(out_dir, f"shard-{i:05d}.npz")
+             for i in range(num_shards)]
+    # the write barrier is the pipeline's commit point: every shard file
+    # is durably in place when build_corpus returns
+    rt.get([write_task.remote(ref, p)
+            for ref, p in zip(ds._iter_block_refs(), paths)])
+    return paths

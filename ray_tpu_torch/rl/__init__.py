@@ -1,7 +1,7 @@
 """ray_tpu_torch.rl — reinforcement learning on the actor substrate (ref
 analog: rllib new API stack): env runners sample on the CPU, learners
-update on the card. The offline algorithms (BC, CQL) read the data plane
-and come with it (ROADMAP.md item 8).
+update on the card. The offline algorithms (BC, CQL; ``offline``) read
+recorded transitions through the data plane.
 
 The names below load their submodule on first use, so a process that
 only needs a torch-free one (IMPALA's aggregator, the replay buffer)
@@ -31,6 +31,9 @@ _EXPORTS = {
                     "MultiAgentVectorEnv", "make_multi_agent_env",
                     "register_multi_agent_env"),
     "sac": ("SAC", "SACConfig", "SACRunner"),
+    "offline": ("BC", "BCConfig", "BCLearner", "CQL", "CQLConfig",
+                "CQLLearner", "collect_transitions", "evaluate_policy",
+                "read_offline_dataset", "write_offline_dataset"),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_WHERE)

@@ -932,7 +932,7 @@ def _launcher_not_ported(args):
     # the reference's launcher drives the autoscaler's node providers
     raise NotImplementedError(
         f"`{args.command}` drives the cluster launcher, which is not ported "
-        "to ray_tpu_torch yet (ROADMAP.md item 8)")
+        "to ray_tpu_torch yet (ROADMAP.md item 8b)")
 
 
 def main(argv=None):

@@ -139,6 +139,11 @@ class WorkerGroup:
         self.pg = None
 
     def start(self, latest_checkpoint: Optional[str]):
+        return rt.get(self.start_async(latest_checkpoint), timeout=120)
+
+    def start_async(self, latest_checkpoint: Optional[str]) -> list:
+        """Create the workers and submit their setup; -> the setup refs
+        (a caller starting several groups waits on them together)."""
         n = self.scaling.num_workers
         actor_cls = rt.remote(TrainWorker)
         if n > 1:
@@ -157,7 +162,7 @@ class WorkerGroup:
                            self.scaling.ingest, self.run_id,
                            self.scaling.use_gpu)
             for i, w in enumerate(self.workers)]
-        return rt.get(setup_refs, timeout=120)
+        return setup_refs
 
     def _reserve_gang(self):
         """Gang-reserve the workers through the placement plane. GPU

@@ -8,7 +8,7 @@ manager, scheduling decisions, why-pending), ``tests/test_runtime_env.py``
 and ``tests/test_placement.py``'s non-slow tests. The tests
 ``torch_repoint.DESELECT`` leaves out exercise the PJRT site-import modes
 the port drops (twin in ``tests/test_torch_surfaces.py``) or run the
-autoscaler (ROADMAP.md item 8). test_placement's load-sensitive DAG
+autoscaler (ROADMAP.md item 8b). test_placement's load-sensitive DAG
 placement gate runs as an entry of its own (SPLIT). Every selected test
 passes with no import of jax or ray_tpu in that process. The reference
 files stay untouched.

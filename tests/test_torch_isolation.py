@@ -107,7 +107,25 @@ def _rl_entry_points():
             cloudpickle.dumps(mlp), cloudpickle.dumps(impala.IMPALAConfig())),
         "DQN": lambda: dqn.DQNConfig().build(),
         "SAC": lambda: sac.SACConfig().build(),
+        "Tuner": _default_tuner_fit,
     }
+
+
+def _default_tuner_fit():
+    """Tuner with neither a ScalingConfig nor resources_per_trial, on a
+    cluster of this host: each trial leases a GPU."""
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train.config import RunConfig
+
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        with tempfile.TemporaryDirectory() as storage:
+            tune.Tuner(lambda config: None, run_config=RunConfig(
+                name="default", storage_path=storage)).fit()
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 @pytest.mark.parametrize("name", ["init_params", "params_from_numpy",
@@ -120,7 +138,7 @@ def _rl_entry_points():
                                   "run_microbenchmarks", "rl_init_params",
                                   "rl_init_continuous_params",
                                   "TorchLearner", "IMPALALearner", "DQN",
-                                  "SAC"])
+                                  "SAC", "Tuner"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -238,6 +256,41 @@ def test_every_module_is_walked():
             "ray_tpu_torch.client.server",
             "ray_tpu_torch.util.multiprocessing",
             "ray_tpu_torch.util.joblib_backend"} <= names
+    assert {f"ray_tpu_torch.data.{m}" for m in _DATA_MODULES} <= names
+    assert {f"ray_tpu_torch.tune.{m}" for m in _TUNE_MODULES} <= names
+    assert "ray_tpu_torch.rl.offline" in names
+
+
+_DATA_MODULES = ("aggregate", "block", "dataset", "datasink", "datasource",
+                 "exchange", "executor", "grouped", "llm_corpus",
+                 "partitioning", "plan", "streaming_executor")
+_TUNE_MODULES = ("controller", "result_grid", "schedulers", "search", "tpe",
+                 "trial", "tuner")
+_DATA_TUNE_IMPORT = f"""
+import importlib, sys
+import ray_tpu_torch.data, ray_tpu_torch.tune, ray_tpu_torch.rl.offline
+for m in {_DATA_MODULES!r}:
+    importlib.import_module("ray_tpu_torch.data." + m)
+for m in {_TUNE_MODULES!r}:
+    importlib.import_module("ray_tpu_torch.tune." + m)
+from ray_tpu_torch.rl import BCConfig, CQLConfig
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu", "pyarrow", "pandas")))
+"""
+
+
+def test_data_tune_and_offline_rl_import_no_jax_and_no_torch():
+    """ray_tpu_torch.data, .tune and .rl.offline (every module) import
+    neither jax nor ray_tpu; none imports torch (the offline learners
+    import it in their bodies), nor pyarrow or pandas (the machine with
+    the card has neither: only the Arrow, parquet, csv and pandas paths
+    import them)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _DATA_TUNE_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.strip()
+    assert out == "[]"
 
 
 _RL_TORCH_FREE = """

@@ -337,12 +337,13 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
     finally:
         dash.shutdown()
     assert rt.state_api.list_nodes is not None
-    with pytest.raises(NotImplementedError, match="autoscaler.*item 8"):
+    with pytest.raises(NotImplementedError, match="autoscaler.*item 8b"):
         Cluster(autoscaler_config={"node_types": []})
     assert rt.dag.InputNode is not None
-    # RL is ported (its offline algorithms come with the data plane)
+    # RL is ported, its offline algorithms with the data plane, and Tune
     assert rt.rl.PPOConfig is not None
-    assert not hasattr(rt.rl, "BCConfig")
+    assert rt.rl.BCConfig is not None and rt.rl.CQLConfig is not None
+    assert rt.tune.Tuner is not None and rt.data.build_corpus is not None
     # the train runtime and the host collective tier are ported; the
     # device tier of the collectives (NCCL between cards) is not
     assert rt.train.TorchTrainer is not None
@@ -352,7 +353,7 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
 
 def test_head_main_refuses_the_dashboard_and_autoscaler():
     """The head now starts the dashboard (item 2b is ported) and serves
-    it; it still refuses the autoscaler, naming item 8."""
+    it; it still refuses the autoscaler, naming item 8b."""
     from argparse import Namespace
     from urllib.request import urlopen
 
@@ -375,7 +376,7 @@ def test_head_main_refuses_the_dashboard_and_autoscaler():
     args = Namespace(gcs_port=0, resources="{}", labels="{}",
                      persist_path="", gcs_only=True, autoscaler_config="{}",
                      dashboard_port=-1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         asyncio.run(head_main.run(args))
 
 

@@ -395,7 +395,7 @@ def test_job_logs_live_under_tmpdir(tmp_path, monkeypatch):
                                   ["exec", "default", "--", "ls"],
                                   ["attach"]])
 def test_launcher_subcommands_name_their_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match="launcher.*item 8"):
+    with pytest.raises(NotImplementedError, match="launcher.*item 8b"):
         tcli.main(argv)
 
 

@@ -8,9 +8,9 @@ string: ``tests/test_client.py`` spawns the client proxy from a ``-c``
 string, ``tests/test_state_cli.py`` runs ``python -m ray_tpu`` (and asks
 the port's microbenchmark for the CPU), ``tests/test_dashboard.py``
 submits a job whose script imports the package; each now starts the
-port. test_dashboard's data endpoint reads the data plane's exchange
-counters (ROADMAP.md item 8) and is deselected. Every selected test passes
-with no import of jax or ray_tpu in that process. The reference files
+port; test_dashboard's data endpoint reads the counters the port's
+exchange publishes. Every selected test passes with no import of jax or
+ray_tpu in that process. The reference files
 stay untouched.
 """
 
@@ -18,8 +18,8 @@ import pytest
 
 from torch_repoint import run_repointed
 
-# reference file -> the number of its tests that run (all but DESELECT's)
-FILES = {"test_client": 2, "test_state_cli": 9, "test_dashboard": 11}
+# reference file -> the number of its tests that run
+FILES = {"test_client": 2, "test_state_cli": 9, "test_dashboard": 12}
 
 
 @pytest.mark.parametrize("name", sorted(FILES))

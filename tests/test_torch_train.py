@@ -259,12 +259,20 @@ def test_token_corpus_matches_reference(rank, world, tmp_path):
 
 
 def test_corpus_paths_not_ported_raise(tmp_path):
+    """The corpus paths that raised before the data plane was ported
+    (shard tasks, build_corpus) now take the reference's arguments; the
+    streams and shards they give are held against ray_tpu in
+    tests/test_torch_data.py."""
+    import inspect
+
     corpus = _make_corpus(str(tmp_path), shards=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcorpus.TokenCorpus(corpus, seq_len=8, shard_tasks=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcorpus.build_corpus([corpus], str(tmp_path / "out"),
-                             tokenize=list)
+    ours = tcorpus.TokenCorpus(corpus, seq_len=8, shard_tasks=True,
+                               max_in_flight=2)
+    assert ours.shard_tasks and ours.max_in_flight == 2
+    assert not hasattr(tcorpus, "_NOT_PORTED")
+    for name in ("build_corpus", "load_shard_docs", "read_token_corpus"):
+        assert (inspect.signature(getattr(tcorpus, name))
+                == inspect.signature(getattr(jcorpus, name))), name
 
 
 def test_ingest_on_a_device_yields_the_numpy_stream_as_tensors(tmp_path):

@@ -168,6 +168,30 @@ caught, so any failure exits non-zero):
    start ms, status's wall ms, the job's submit-to-SUCCEEDED s, its step
    ms beside train_410m's, and the client task's round trip.
 
+16. launcher_410m: the cluster-operations layer on a cluster of its own.
+   `python -m ray_tpu_torch up` from a JSON config (a fresh cluster name,
+   the local provider, a head with 4 CPUs and no GPU, one node type
+   h100-1 of {CPU: 2, GPU: 1} per host, 0 to 1 slices, idle timeout
+   LAUNCHER_IDLE_S s). `exec` starts a driver running a three-step
+   workflow (launcher_workflow): batch (batch_410m's tokens, drawn on the
+   CPU), train (a CPU step whose num_gpus=1 task stays pending until the
+   autoscaler launches an h100-1 node, then runs the 410m step there from
+   the train phases' seed: 2 + LAUNCHER_STEPS steps), report (which also
+   waits for a `go` event). The driver is SIGKILLed as soon as train's
+   checkpoint lands; the event is sent and a second `exec`'d driver
+   resumes the workflow. Checks: no GPU in the cluster before; the GPU
+   task ran on the autoscaled node (labels autoscaled "1", gpu-type the
+   part) with 48/24/24 flash launches a step and its first loss equal to
+   train_410m's to LAUNCHER_LOSS_RTOL; batch, train and the GPU task ran
+   once (0 launches on the resume), the output's losses equal the
+   checkpoint's bit for bit; the autoscaler's status reads one scale-up,
+   then after the idle timeout one scale-down and no GPU in the cluster;
+   `down` leaves no process of the cluster's session. Prints up s,
+   scale-up s (the GPU task's submission to its node's registration), the
+   GPU task's first-step and mean step ms beside train_410m's, the killed
+   driver's death to the resumed output, scale-down s (the GPU task's end
+   to the scale-down), down s and the phase's wall s.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
 prints no result.
@@ -206,6 +230,11 @@ alone.
 runs device, build, train_410m and lora_train_410m (for their step
 times), then rl_parity and the data plane, Tune and offline RL phases
 alone, on a cluster of their own.
+
+    python3 chip_smoke.py --launcher
+
+runs device, build, train_410m (for its first loss and step time) and
+launcher_410m alone.
 
     python3 chip_smoke.py --seed N [...]
 
@@ -712,14 +741,15 @@ def config_410m(**overrides):
                             **overrides)
 
 
-def batch_410m(vocab: int) -> dict:
-    """The 410m train phases' batch: random tokens from a seed, on the
-    card."""
+def batch_410m(vocab: int, device: str = "cuda") -> dict:
+    """The 410m train phases' batch: random tokens from a seed, drawn on
+    the CPU (so a process without the card, such as launcher_410m's
+    batch step, makes the same batch) and moved to `device`."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, vocab, (BATCH_410M, SEQ_410M), generator=gen,
-                           device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, vocab, (BATCH_410M, SEQ_410M), generator=gen)
+    tokens = tokens.to(device)
     return {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
 
 
@@ -729,7 +759,8 @@ def run_410m_steps(cfg, params: dict, steps: int, trainable_keys=None,
     copy), 2 warm-up steps, then `steps` timed steps on one batch
     (`batch_410m` unless given), with the launch counters and the peak
     memory read over the timed steps only. Returns the readings and the
-    step, state and batch."""
+    step, state and batch. The first warm-up step's ms includes what a
+    first call pays (library handles, the allocator's growth)."""
     import gc
 
     import torch
@@ -746,10 +777,13 @@ def run_410m_steps(cfg, params: dict, steps: int, trainable_keys=None,
     if batch is None:
         batch = batch_410m(cfg.vocab_size)
     losses, moe_aux = [], []
+    t0 = time.perf_counter()
     for _ in range(2):                                   # warm-up
         state, aux = step(state, batch)
         losses.append(aux["loss"].item())
         moe_aux.append(aux["moe_aux"].item())
+        if len(losses) == 1:        # .item() waited for the card
+            first_step_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                                     # counts: main path only
@@ -766,7 +800,7 @@ def run_410m_steps(cfg, params: dict, steps: int, trainable_keys=None,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps}
     return {"losses": losses, "moe_aux": moe_aux,
-            "step_ms": dt / steps * 1e3,
+            "first_step_ms": first_step_ms, "step_ms": dt / steps * 1e3,
             "tokens_per_s": BATCH_410M * SEQ_410M * steps / dt,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": dict(launches), "expected_launches": want,
@@ -4334,23 +4368,6 @@ def _cli(*args, timeout: float = 120) -> tuple[str, float]:
     return proc.stdout, wall_ms
 
 
-def _session_pids(sid: int) -> list[int]:
-    """Processes of the session `sid`, this one aside. The CLI starts its
-    head in a session of its own, and the head's node managers, workers
-    and jobs inherit it, so the head's pid names its cluster's processes
-    and no other checkout's."""
-    pids = []
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit() or int(entry) == os.getpid():
-            continue
-        try:
-            if os.getsid(int(entry)) == sid:
-                pids.append(int(entry))
-        except OSError:
-            continue
-    return pids
-
-
 def _gpu_line(status: str) -> str:
     return next((ln.strip() for ln in status.splitlines()
                  if ln.strip().startswith("GPU:")), "")
@@ -4366,6 +4383,8 @@ def phase_surfaces_410m(step_ms: float) -> dict:
     import urllib.request
 
     import torch
+
+    from ray_tpu_torch.scripts.launcher import session_pids
 
     card = card_line()
     names = subprocess.run(
@@ -4504,11 +4523,11 @@ def phase_surfaces_410m(step_ms: float) -> dict:
         if head_up:
             _cli("stop")
     deadline = time.monotonic() + 60
-    while (head_pid is not None and _session_pids(head_pid)
+    while (head_pid is not None and session_pids(head_pid)
            and time.monotonic() < deadline):
         time.sleep(0.5)
     res["cluster_pids_after_stop"] = (
-        None if head_pid is None else sorted(_session_pids(head_pid)))
+        None if head_pid is None else sorted(session_pids(head_pid)))
     job, client = res["job"], res["client"]
     ok = (res["head_resources_gpu"] == float(len(names)) and bool(names)
           and res["head_labels"].get("gpu-type") == names[0]
@@ -4535,6 +4554,301 @@ def phase_surfaces_410m(step_ms: float) -> dict:
     if not ok:
         raise AssertionError("surfaces_410m failed its checks")
     return job["launches"]
+
+
+LAUNCHER_STEPS = 3          # the GPU task's timed steps, after 2 warm-up
+LAUNCHER_IDLE_S = 10.0      # the autoscaler's idle timeout
+LAUNCHER_LOSS_RTOL = 1e-6   # as data_corpus_410m's first loss
+LAUNCHER_WORKFLOW = "launcher-410m"
+
+
+def _mark(marks: str, step: str) -> None:
+    with open(os.path.join(marks, step), "a") as f:
+        f.write("x")
+
+
+def launcher_batch_step(seed: int, marks: str) -> dict:
+    """Workflow step `batch` (a CPU task): batch_410m's tokens, drawn on
+    the CPU, as numpy."""
+    _mark(marks, "batch")
+    batch = batch_410m(config_410m().vocab_size, device="cpu")
+    return {"seed": seed,
+            **{k: v.numpy() for k, v in batch.items()}}
+
+
+def launcher_gpu_run(batch: dict, steps: int, marks: str) -> dict:
+    """The GPU task: the 410m params from the train phases' seed, and
+    run_410m_steps over `batch` on the card (2 warm-up steps, `steps`
+    timed ones with the launch counters). Appends its launch counts to
+    `marks`/gpu_runs.jsonl, one line a run."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the GPU task found no CUDA device")
+    cfg = config_410m()
+    run = run_410m_steps(cfg, llama.init_params(cfg, seed=0, device="cuda"),
+                         steps, batch={k: torch.from_numpy(batch[k]).cuda()
+                                       for k in ("tokens", "targets")})
+    out = {k: run[k] for k in ("losses", "first_step_ms", "step_ms",
+                               "tokens_per_s", "launches",
+                               "expected_launches")}
+    out["node_id"] = os.environ["RAYT_NODE_ID"]
+    out["device"] = torch.cuda.get_device_name(0)
+    out["finished_at"] = time.time()
+    with open(os.path.join(marks, "gpu_runs.jsonl"), "a") as f:
+        f.write(json.dumps(out["launches"]) + "\n")
+    return out
+
+
+def launcher_train_step(batch: dict, steps: int, marks: str) -> dict:
+    """Workflow step `train` (a CPU task): submits the GPU task, which
+    stays pending until the autoscaler has launched a GPU node, and
+    waits for it."""
+    import ray_tpu_torch as rt
+
+    _mark(marks, "train")
+    submitted_at = time.time()
+    out = rt.get(rt.remote(num_gpus=1)(launcher_gpu_run).remote(
+        batch, steps, marks))
+    return {**out, "submitted_at": submitted_at}
+
+
+def launcher_report_step(trained: dict, go) -> dict:
+    """Workflow step `report` (a CPU task), run once the harness's `go`
+    event has arrived."""
+    return {"losses": trained["losses"], "launches": trained["launches"],
+            "node_id": trained["node_id"], "go": go}
+
+
+def launcher_workflow(marks: str, seed: int = 0):
+    """batch -> train -> report, with report also waiting for the `go`
+    event (so a driver killed once train is checkpointed has not run it)."""
+    from ray_tpu_torch import workflow
+
+    batch = workflow.step(launcher_batch_step).bind(seed, marks)
+    trained = workflow.step(launcher_train_step).bind(batch, LAUNCHER_STEPS,
+                                                      marks)
+    return workflow.step(launcher_report_step).bind(
+        trained, workflow.wait_for_event("go"))
+
+
+_LAUNCHER_DRIVER = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+import ray_tpu_torch as rt
+from ray_tpu_torch import workflow
+
+rt.init(address=os.environ["RAYT_ADDRESS"])
+final = chip_smoke.launcher_workflow({marks!r})
+if sys.argv[1] == "run":
+    out = workflow.run(final, workflow_id={wid!r}, storage={store!r})
+else:
+    out = workflow.resume({wid!r}, final, storage={store!r})
+print("LAUNCHER_RESULT " + json.dumps(out), flush=True)
+rt.shutdown()
+"""
+
+
+def _exec_driver(name: str, driver: str, mode: str) -> subprocess.Popen:
+    """`python -m ray_tpu_torch exec <name> -- python <driver> <mode>` in
+    a session of its own, so one signal ends it and the driver."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "exec", name, "--",
+         sys.executable, driver, mode],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def _api(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _alive_gpus(status: dict) -> float:
+    return sum(n["resources_total"].get("GPU", 0.0)
+               for n in status["nodes"] if n["alive"])
+
+
+def phase_launcher_410m(first_loss: float, step_ms: float) -> dict:
+    """The cluster-operations layer on the card (see the module
+    docstring, 16): `up` from a JSON config whose head has no GPU, a
+    three-step workflow `exec`'d against it whose GPU task makes the
+    autoscaler launch an h100-1 node and runs the 410m step there, the
+    driver killed once `train` is checkpointed and the workflow resumed
+    by a second one, the idle node retired, `down`. Returns the GPU
+    task's flash launch counts."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.scripts.launcher import session_pids
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()       # the card's memory for the GPU task
+    work = tempfile.mkdtemp(prefix="rayt_torch_launcher_")
+    marks, store = os.path.join(work, "marks"), os.path.join(work, "store")
+    os.makedirs(marks)
+    name = f"launcher-410m-{uuid.uuid4().hex[:8]}"
+    cfg_path = os.path.join(work, "cluster.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"cluster_name": name, "provider": {"type": "local"},
+                   "head": {"resources": {"CPU": 4}, "dashboard_port": 0},
+                   "node_types": [{"name": "h100-1", "resources_per_host":
+                                   {"CPU": 2, "GPU": 1}, "hosts": 1,
+                                   "max_slices": 1, "min_slices": 0}],
+                   "autoscaler": {"idle_timeout_s": LAUNCHER_IDLE_S,
+                                  "reconcile_interval_s": 0.5}}, f)
+    driver = os.path.join(work, "driver.py")
+    with open(driver, "w") as f:
+        f.write(_LAUNCHER_DRIVER.format(root=ROOT, marks=marks, store=store,
+                                        wid=LAUNCHER_WORKFLOW))
+    res: dict = {"card": card_line(), "cluster": name,
+                 "in_process_first_loss": first_loss,
+                 "in_process_step_ms": step_ms}
+    head_pid = None
+    up = False
+    try:
+        out, up_ms = _cli("up", cfg_path)
+        up = True
+        res["up_s"] = up_ms / 1e3
+        info = json.loads(out.strip().splitlines()[-1])
+        dash = info["dashboard_port"]
+        from ray_tpu_torch.scripts.launcher import load_state
+
+        head_pid = load_state(name)["head_pid"]
+        before = _api(dash, "/api/cluster_status")
+        res["gpus_before"] = _alive_gpus(before)
+
+        # the first driver, killed once train is checkpointed
+        first = _exec_driver(name, driver, "run")
+        steps_dir = os.path.join(store, LAUNCHER_WORKFLOW, "steps")
+        deadline = time.monotonic() + 600
+        while not any(n.startswith("launcher_train_step-")
+                      and n.endswith(".pkl")
+                      for n in (os.listdir(steps_dir)
+                                if os.path.isdir(steps_dir) else ())):
+            if first.poll() is not None or time.monotonic() > deadline:
+                first.kill()
+                raise AssertionError(
+                    "the first driver ended before train was checkpointed: "
+                    + first.communicate()[1][-4000:])
+            time.sleep(0.05)
+        os.killpg(first.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        first.wait(timeout=30)
+        [ckpt] = [n for n in os.listdir(steps_dir)
+                  if n.startswith("launcher_train_step-")
+                  and n.endswith(".pkl")]
+        import pickle
+
+        with open(os.path.join(steps_dir, ckpt), "rb") as f:
+            trained = pickle.load(f)
+        res["meta_after_kill"] = workflow.list_workflows(storage=store)[0][
+            "status"]
+        res["report_ran_before_kill"] = any(
+            n.startswith("launcher_report_step-")
+            for n in os.listdir(steps_dir))
+
+        # the resume
+        workflow.send_event(LAUNCHER_WORKFLOW, "go", True, storage=store)
+        second = _exec_driver(name, driver, "resume")
+        sout, serr = second.communicate(timeout=600)
+        res["death_to_resumed_output_s"] = time.perf_counter() - t_kill
+        if second.returncode != 0:
+            raise AssertionError(f"the resumed driver failed: {serr[-4000:]}")
+        resumed = json.loads(next(
+            ln for ln in sout.splitlines()
+            if ln.startswith("LAUNCHER_RESULT ")).split(" ", 1)[1])
+        output = workflow.get_output(LAUNCHER_WORKFLOW, storage=store)
+        with open(os.path.join(marks, "gpu_runs.jsonl")) as f:
+            gpu_runs = [json.loads(ln) for ln in f]
+        res["gpu_task_runs"] = len(gpu_runs)
+        res["launches_resume"] = {k: sum(run[k] for run in gpu_runs[1:])
+                                  for k in gpu_runs[0]}
+        for step in ("batch", "train"):
+            with open(os.path.join(marks, step)) as f:
+                res[f"{step}_step_runs"] = len(f.read())
+
+        # the node the GPU task ran on, and the scale-up
+        status = _api(dash, "/api/cluster_status")
+        [node] = [n for n in status["nodes"]
+                  if n["node_id"] == trained["node_id"]]
+        res["gpu_node_labels"] = node["labels"]
+        events = _api(dash, "/api/events?kind=node_registered&limit=0")
+        [reg] = [e for e in events["events"]
+                 if e["node_id"] == trained["node_id"]]
+        res["scale_up_s"] = reg["ts"] - trained["submitted_at"]
+        res["autoscaler_at_resume"] = {
+            k: status["autoscaler"][k]
+            for k in ("num_scale_ups", "num_scale_downs")}
+        res["gpu_task"] = {k: trained[k] for k in (
+            "losses", "first_step_ms", "step_ms", "tokens_per_s",
+            "launches", "expected_launches", "device")}
+        res["step_ms_vs_in_process"] = trained["step_ms"] / step_ms
+        res["first_loss_rel_diff"] = (abs(trained["losses"][0] - first_loss)
+                                      / abs(first_loss))
+        res["resumed_losses_bit_equal"] = (
+            output["losses"] == trained["losses"]
+            and resumed["losses"] == trained["losses"])
+
+        # the idle node retired: a short poll of the cluster status
+        deadline = time.monotonic() + LAUNCHER_IDLE_S + 60
+        while True:
+            status = _api(dash, "/api/cluster_status")
+            down_seen = status["autoscaler"]["num_scale_downs"] >= 1
+            if (down_seen and _alive_gpus(status) == 0.0) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        events = _api(dash, "/api/events?source=autoscaler&limit=0")
+        downs = [e for e in events["events"]
+                 if e["kind"] == "autoscaler_scale_down"]
+        res["scale_down_s"] = (downs[0]["ts"] - trained["finished_at"]
+                               if downs else None)
+        res["autoscaler_after_idle"] = {
+            k: status["autoscaler"][k]
+            for k in ("num_scale_ups", "num_scale_downs")}
+        res["gpus_after_idle"] = _alive_gpus(status)
+    finally:
+        if up:
+            _, down_ms = _cli("down", name)
+            res["down_s"] = down_ms / 1e3
+    res["cluster_pids_after_down"] = (
+        None if head_pid is None else session_pids(head_pid))
+    res["phase_s"] = time.perf_counter() - t_phase
+    gpu = res["gpu_task"]
+    ok = (res["gpus_before"] == 0.0
+          and res["meta_after_kill"] == "RUNNING"
+          and not res["report_ran_before_kill"]
+          and res["gpu_node_labels"].get("autoscaled") == "1"
+          and res["gpu_node_labels"].get("gpu-type")
+          == torch.cuda.get_device_name(0)
+          and gpu["device"] == torch.cuda.get_device_name(0)
+          and gpu["launches"] == gpu["expected_launches"]
+          and all(math.isfinite(x) for x in gpu["losses"])
+          and res["first_loss_rel_diff"] <= LAUNCHER_LOSS_RTOL
+          and res["gpu_task_runs"] == 1 and res["batch_step_runs"] == 1
+          and res["train_step_runs"] == 1
+          and set(res["launches_resume"].values()) == {0}
+          and res["resumed_losses_bit_equal"]
+          and res["autoscaler_at_resume"]["num_scale_ups"] == 1
+          and res["autoscaler_after_idle"] == {"num_scale_ups": 1,
+                                               "num_scale_downs": 1}
+          and res["gpus_after_idle"] == 0.0
+          and res["cluster_pids_after_down"] == [])
+    emit("launcher_410m", **res, steps=LAUNCHER_STEPS,
+         idle_timeout_s=LAUNCHER_IDLE_S, loss_rtol=LAUNCHER_LOSS_RTOL, ok=ok)
+    if not ok:
+        raise AssertionError("launcher_410m failed its checks")
+    return gpu["launches"]
 
 
 def phase_rl() -> dict:
@@ -4614,6 +4928,8 @@ PHASE_GROUPS = {
     "--rl": ((), lambda r, seed: _on_cluster(phase_rl)),
     "--surfaces": (("full",), lambda r, seed: phase_surfaces_410m(
         r["full"]["step_ms"])),
+    "--launcher": (("full",), lambda r, seed: phase_launcher_410m(
+        r["full"]["losses"][0], r["full"]["step_ms"])),
 }
 
 
@@ -4683,6 +4999,8 @@ def main(argv: list[str]) -> int:
     paths.update(phase_runtime(full["losses"], lora_run["step_ms"],
                                full["step_ms"], seed))
     paths["surfaces_job_410m"] = phase_surfaces_410m(full["step_ms"])
+    paths["launcher_410m"] = phase_launcher_410m(full["losses"][0],
+                                                 full["step_ms"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "design": DESIGN[name],

@@ -67,11 +67,18 @@ The runtime's surfaces: ``state_api``, ``python -m ray_tpu_torch``
 ...), the dashboard with job submission (``dashboard``, started by the
 head with ``--dashboard-port``) and the thin client (``client``).
 
+Cluster operations: the autoscaler in the head (``autoscaler``: a
+reconciler launching and retiring slices through a node provider, local
+node managers or Compute Engine A3 GPU VMs), the launcher
+(``python -m ray_tpu_torch up cfg.json``, ``exec``, ``attach``, ``down``)
+and durable workflows (``workflow``: steps checkpointed to storage, a
+killed driver's run resumed without re-running them).
+
 The package never imports jax. Its root, ``core``, ``_internal``,
 ``util``, ``dag``, ``serve`` (all but ``serve.llm``), ``train``,
-``data``, ``tune``, ``state_api``, ``scripts``, ``dashboard`` and ``client`` never
-import torch either (the train recipes import it inside
-their bodies): workers boot with ``python -S`` in about 100 ms and pay
+``data``, ``tune``, ``state_api``, ``scripts``, ``dashboard``, ``client``,
+``autoscaler`` and ``workflow`` never import torch either (the train
+recipes import it inside their bodies): workers boot with ``python -S`` in about 100 ms and pay
 torch's import only when a task uses it, so ``resolve_device`` is a lazy
 attribute.
 """

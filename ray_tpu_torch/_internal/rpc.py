@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import asyncio
 import itertools
+import os
 import random
 import struct
 import sys
@@ -276,7 +277,7 @@ class Connection:
         # scatter-gather chunk list verbatim
         if self._wbuf:
             self._flush_wbuf()
-        self.writer.writelines(frames)
+        self._writelines(frames)
 
     def _flush_wbuf(self):
         self._flush_scheduled = False
@@ -287,9 +288,22 @@ class Connection:
         if self.closed:
             return  # pending futures already failed by _teardown
         try:
-            self.writer.writelines(buf)
+            self._writelines(buf)
         except Exception:
             pass  # the read loop notices the dead transport
+
+    def _writelines(self, bufs: list):
+        """Hand buffers to the transport unless it is closing. A fatal
+        send error (the peer reset the connection) closes the transport
+        at once but its socket only on the next loop pass, and 3.12's
+        selector transport `writelines` does not check for that: it
+        queues the bytes and registers a writer for the fd, a selector
+        key the socket's close then leaves behind. The next socket given
+        that fd number never reads (its reader's register raises
+        FileNotFoundError from epoll's modify)."""
+        if self.writer.transport.is_closing():
+            return  # the read loop notices the dead transport
+        self.writer.writelines(bufs)
 
     async def _maybe_drain(self):
         """Back-pressure check: only await drain() once the transport's
@@ -552,6 +566,20 @@ async def connect(
     raise ConnectionLost(f"could not connect to {host}:{port}: {last}")
 
 
+def log_loop_exceptions(loop: asyncio.AbstractEventLoop) -> None:
+    """Log what the loop's callbacks and tasks raise uncaught with this
+    process's pid (asyncio's default handler names no process: a stale
+    selector key then cannot be placed between a worker and the head)."""
+    def handler(loop, context):
+        exc = context.get("exception")
+        logger.error("event loop error in pid %d: %s (%r)", os.getpid(),
+                     context.get("message"),
+                     context.get("handle") or context.get("future")
+                     or context.get("task"), exc_info=exc)
+
+    loop.set_exception_handler(handler)
+
+
 class EventLoopThread:
     """A dedicated asyncio loop on a daemon thread.
 
@@ -561,6 +589,7 @@ class EventLoopThread:
 
     def __init__(self, name: str = "rayt-io"):
         self.loop = asyncio.new_event_loop()
+        log_loop_exceptions(self.loop)
         self._thread = threading.Thread(target=self._run, name=name, daemon=True)
         self._thread.start()
 

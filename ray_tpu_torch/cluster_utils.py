@@ -43,10 +43,6 @@ class Cluster:
                  persist_path: str | None = None,
                  autoscaler_config: dict | None = None,
                  dashboard_port: int | None = None):
-        if autoscaler_config:
-            from ray_tpu_torch.core.head_main import not_ported
-
-            not_ported("autoscaler")
         self.head_proc: subprocess.Popen | None = None
         self.gcs_port: int | None = None
         self.dashboard_port: int | None = None

@@ -14,25 +14,15 @@ import asyncio
 import json
 import sys
 
-# head services of the reference that the port does not hold yet, by the
-# ROADMAP.md item that brings them
-_NOT_PORTED = {"autoscaler": "8b"}
-
-
-def not_ported(service: str):
-    raise NotImplementedError(
-        f"the {service} is not ported to ray_tpu_torch yet (ROADMAP.md item "
-        f"{_NOT_PORTED[service]})")
-
 
 async def run(args):
-    if args.autoscaler_config:
-        not_ported("autoscaler")
     from ray_tpu_torch._internal.ids import NodeID
+    from ray_tpu_torch._internal.rpc import log_loop_exceptions
     from ray_tpu_torch.core.common import Address
     from ray_tpu_torch.core.gcs import GcsServer
     from ray_tpu_torch.core.node_manager import NodeManager
 
+    log_loop_exceptions(asyncio.get_running_loop())
     gcs = GcsServer(persist_path=args.persist_path or None)
     gcs_port = await gcs.start(port=args.gcs_port)
     dashboard_port = -1
@@ -43,6 +33,22 @@ async def run(args):
 
         dashboard = DashboardHead(gcs, f"127.0.0.1:{gcs_port}")
         dashboard_port = await dashboard.start(port=args.dashboard_port)
+    autoscaler = None
+    if args.autoscaler_config:
+        from ray_tpu_torch.autoscaler import Autoscaler, NodeTypeConfig
+        from ray_tpu_torch.autoscaler.node_provider import make_provider
+
+        as_cfg = json.loads(args.autoscaler_config)
+        provider = make_provider(as_cfg.get("provider"),
+                                 f"127.0.0.1:{gcs_port}")
+        types = [NodeTypeConfig(**t) for t in as_cfg["node_types"]]
+        gcs.autoscaler_active = True  # infeasible tasks wait for capacity
+        autoscaler = Autoscaler(
+            gcs, provider, types,
+            idle_timeout_s=as_cfg.get("idle_timeout_s", 60.0),
+            reconcile_interval_s=as_cfg.get("reconcile_interval_s", 1.0))
+        gcs.autoscaler = autoscaler  # status surface (rpc_cluster_status)
+        autoscaler.start()
     if args.gcs_only:
         print(json.dumps({"gcs_port": gcs_port, "nm_port": -1,
                           "node_id": None,
@@ -71,6 +77,8 @@ async def run(args):
     try:
         await stop.wait()
     finally:
+        if autoscaler is not None:
+            autoscaler.stop()
         if dashboard is not None:
             await dashboard.stop()
         if nm is not None:

@@ -16,9 +16,11 @@ import json
 
 async def run(args):
     from ray_tpu_torch._internal.ids import NodeID
+    from ray_tpu_torch._internal.rpc import log_loop_exceptions
     from ray_tpu_torch.core.common import Address
     from ray_tpu_torch.core.node_manager import NodeManager
 
+    log_loop_exceptions(asyncio.get_running_loop())
     gcs_host, gcs_port = args.gcs_address.split(":")
     resources = json.loads(args.resources)
     labels = json.loads(args.labels)

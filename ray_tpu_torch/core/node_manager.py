@@ -868,7 +868,10 @@ class NodeManager:
         w.info = info
         try:
             w.conn = await connect(info.address.host, info.address.port)
-        except Exception:
+        except Exception as e:
+            logger.warning("node manager pid %d could not reach registering "
+                           "worker pid %s at %s: %r", os.getpid(), pid,
+                           info.address, e)
             if w in self._unregistered:
                 self._unregistered.remove(w)
             try:

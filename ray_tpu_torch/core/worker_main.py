@@ -30,7 +30,16 @@ def main():
         gcs_address=Address(gcs_host, int(gcs_port)),
         node_address=Address(nm_host, int(nm_port)),
         node_id=node_id)
-    cw.connect_cluster()
+    try:
+        cw.connect_cluster()
+    except BaseException:
+        from ray_tpu_torch._internal.logging_utils import setup_logger
+
+        setup_logger("worker").exception(
+            "worker pid %d failed to bootstrap against node %s (gcs %s)",
+            os.getpid(), os.environ["RAYT_NODE_ADDR"],
+            os.environ["RAYT_GCS_ADDR"])
+        raise
 
     stop = threading.Event()
 

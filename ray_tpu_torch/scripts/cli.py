@@ -928,11 +928,30 @@ def cmd_job_list(args):
     print(_dash_request(args, "/api/jobs"))
 
 
-def _launcher_not_ported(args):
-    # the reference's launcher drives the autoscaler's node providers
-    raise NotImplementedError(
-        f"`{args.command}` drives the cluster launcher, which is not ported "
-        "to ray_tpu_torch yet (ROADMAP.md item 8b)")
+def cmd_up(args):
+    from ray_tpu_torch.scripts import launcher
+
+    launcher.up(args.config_file)
+
+
+def cmd_down(args):
+    from ray_tpu_torch.scripts import launcher
+
+    launcher.down(args.cluster_name)
+
+
+def cmd_exec(args):
+    from ray_tpu_torch.scripts import launcher
+
+    command = args.command[1:] if args.command[:1] == ["--"] \
+        else args.command
+    sys.exit(launcher.exec_cmd(args.cluster_name, command))
+
+
+def cmd_attach(args):
+    from ray_tpu_torch.scripts import launcher
+
+    sys.exit(launcher.attach(args.cluster_name))
 
 
 def main(argv=None):
@@ -967,22 +986,23 @@ def main(argv=None):
                 jsp.add_argument("--follow", action="store_true")
         jsp.set_defaults(fn=fn)
 
-    up = sub.add_parser("up", help="launch a cluster from a YAML config")
+    up = sub.add_parser("up", help="launch a cluster from a JSON or YAML "
+                        "config")
     up.add_argument("config_file")
-    up.set_defaults(fn=_launcher_not_ported)
+    up.set_defaults(fn=cmd_up)
 
     dn = sub.add_parser("down", help="tear a launched cluster down")
     dn.add_argument("cluster_name", nargs="?", default="default")
-    dn.set_defaults(fn=_launcher_not_ported)
+    dn.set_defaults(fn=cmd_down)
 
     ex = sub.add_parser("exec", help="run a command against a cluster")
     ex.add_argument("cluster_name")
     ex.add_argument("command", nargs=argparse.REMAINDER)
-    ex.set_defaults(fn=_launcher_not_ported)
+    ex.set_defaults(fn=cmd_exec)
 
     at = sub.add_parser("attach", help="shell with RAYT_ADDRESS exported")
     at.add_argument("cluster_name", nargs="?", default="default")
-    at.set_defaults(fn=_launcher_not_ported)
+    at.set_defaults(fn=cmd_attach)
 
     svp = sub.add_parser("serve", help="deploy/inspect serve apps")
     svsub = svp.add_subparsers(dest="serve_command", required=True)

@@ -7,9 +7,10 @@ Pool, the joblib backend), ``tests/test_cluster_events.py`` (the event
 manager, scheduling decisions, why-pending), ``tests/test_runtime_env.py``
 and ``tests/test_placement.py``'s non-slow tests. The tests
 ``torch_repoint.DESELECT`` leaves out exercise the PJRT site-import modes
-the port drops (twin in ``tests/test_torch_surfaces.py``) or run the
-autoscaler (ROADMAP.md item 8b). test_placement's load-sensitive DAG
-placement gate runs as an entry of its own (SPLIT). Every selected test
+the port drops (twin in ``tests/test_torch_surfaces.py``);
+test_cluster_events' chaos test runs the port's autoscaler with the local
+provider. test_placement's load-sensitive DAG placement gate runs as an
+entry of its own (SPLIT). Every selected test
 passes with no import of jax or ray_tpu in that process. The reference
 files stay untouched.
 """
@@ -20,7 +21,7 @@ from torch_repoint import run_repointed
 
 # reference file -> the number of its non-slow tests that run in the
 # file's entry (all but DESELECT's and SPLIT's)
-FILES = {"test_util": 6, "test_cluster_events": 9, "test_runtime_env": 14,
+FILES = {"test_util": 6, "test_cluster_events": 10, "test_runtime_env": 14,
          "test_placement": 10}
 # load-sensitive tests (ROADMAP.md §3), each run as an entry of its own:
 # the DAG gate asks the placement plane for a gang right after killing the

@@ -256,9 +256,37 @@ def test_every_module_is_walked():
             "ray_tpu_torch.client.server",
             "ray_tpu_torch.util.multiprocessing",
             "ray_tpu_torch.util.joblib_backend"} <= names
+    assert {f"ray_tpu_torch.{m}" for m in _OPS_MODULES} <= names
     assert {f"ray_tpu_torch.data.{m}" for m in _DATA_MODULES} <= names
     assert {f"ray_tpu_torch.tune.{m}" for m in _TUNE_MODULES} <= names
     assert "ray_tpu_torch.rl.offline" in names
+
+
+# the cluster-operations layer: the autoscaler, its providers, the
+# launcher and durable workflows
+_OPS_MODULES = ("autoscaler", "autoscaler.autoscaler", "autoscaler.gcp",
+                "autoscaler.instance_manager", "autoscaler.node_provider",
+                "workflow", "workflow.api", "scripts.launcher")
+_OPS_IMPORT = f"""
+import importlib, sys
+for m in {_OPS_MODULES!r}:
+    importlib.import_module("ray_tpu_torch." + m)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "optax",
+                                    "ray_tpu", "yaml")))
+"""
+
+
+def test_autoscaler_workflow_and_launcher_import_no_jax_and_no_torch():
+    """The autoscaler (with both providers), the workflow executor and the
+    launcher are host code: they import neither jax nor ray_tpu, nor
+    torch, nor PyYAML (a YAML config imports it inside the call; the
+    machine with the card has none)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _OPS_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.strip()
+    assert out == "[]"
 
 
 _DATA_MODULES = ("aggregate", "block", "dataset", "datasink", "datasource",

@@ -329,16 +329,24 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
     rt.kill(h)
     from ray_tpu_torch.cluster_utils import Cluster
 
-    # the dashboard is ported (item 2b): a Cluster starts it; the
-    # autoscaler still raises, naming its item
-    dash = Cluster(dashboard_port=0, initialize_head=True)
+    # the dashboard (item 2b) and the autoscaler (item 8b) are ported: a
+    # Cluster starts both, and the cluster status carries the autoscaler's
+    dash = Cluster(dashboard_port=0, initialize_head=True,
+                   autoscaler_config={"node_types": []})
     try:
         assert dash.dashboard_port > 0
+        from urllib.request import urlopen
+
+        with urlopen(f"http://127.0.0.1:{dash.dashboard_port}"
+                     "/api/cluster_status", timeout=30) as r:
+            scaler = json.loads(r.read())["autoscaler"]
+        assert (scaler["num_scale_ups"], scaler["num_scale_downs"]) == (0, 0)
     finally:
         dash.shutdown()
     assert rt.state_api.list_nodes is not None
-    with pytest.raises(NotImplementedError, match="autoscaler.*item 8b"):
-        Cluster(autoscaler_config={"node_types": []})
+    from ray_tpu_torch import workflow
+
+    assert workflow.run is not None
     assert rt.dag.InputNode is not None
     # RL is ported, its offline algorithms with the data plane, and Tune
     assert rt.rl.PPOConfig is not None
@@ -352,17 +360,20 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
 
 
 def test_head_main_refuses_the_dashboard_and_autoscaler():
-    """The head now starts the dashboard (item 2b is ported) and serves
-    it; it still refuses the autoscaler, naming item 8b."""
-    from argparse import Namespace
+    """The head starts the dashboard (item 2b) and serves it, and with
+    --autoscaler-config it runs the autoscaler (item 8b) over the
+    configured provider, which the cluster status shows."""
     from urllib.request import urlopen
 
     from ray_tpu_torch._internal.spawn import child_env, fast_python_argv
-    from ray_tpu_torch.core import head_main
 
+    as_cfg = {"provider": {"type": "local"}, "reconcile_interval_s": 0.2,
+              "node_types": [{"name": "h100-1", "resources_per_host":
+                              {"CPU": 1, "GPU": 1}, "max_slices": 1}]}
     head = subprocess.Popen(
         fast_python_argv("ray_tpu_torch.core.head_main")
-        + ["--gcs-only", "--dashboard-port", "0"],
+        + ["--gcs-only", "--dashboard-port", "0",
+           "--autoscaler-config", json.dumps(as_cfg)],
         stdout=subprocess.PIPE, env=child_env(ROOT), text=True)
     try:
         info = json.loads(head.stdout.readline())
@@ -370,14 +381,13 @@ def test_head_main_refuses_the_dashboard_and_autoscaler():
         with urlopen(f"http://127.0.0.1:{info['dashboard_port']}"
                      "/api/cluster", timeout=30) as r:
             assert "scheduling" in json.loads(r.read())
+        with urlopen(f"http://127.0.0.1:{info['dashboard_port']}"
+                     "/api/cluster_status", timeout=30) as r:
+            scaler = json.loads(r.read())["autoscaler"]
+        assert scaler["num_scale_ups"] == 0 and scaler["slices"] == {}
     finally:
         head.terminate()
         head.wait(timeout=30)
-    args = Namespace(gcs_port=0, resources="{}", labels="{}",
-                     persist_path="", gcs_only=True, autoscaler_config="{}",
-                     dashboard_port=-1)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        asyncio.run(head_main.run(args))
 
 
 # ----------------------------- the port's compute inside workers vs ray_tpu

@@ -394,9 +394,22 @@ def test_job_logs_live_under_tmpdir(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv",[["up", "cluster.yaml"], ["down"],
                                   ["exec", "default", "--", "ls"],
                                   ["attach"]])
-def test_launcher_subcommands_name_their_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match="launcher.*item 8b"):
+def test_launcher_subcommands_name_their_roadmap_item(argv, monkeypatch):
+    """up, down, exec and attach (item 8b) drive the port's launcher."""
+    from ray_tpu_torch.scripts import launcher
+
+    calls = []
+    for fn in ("up", "down", "exec_cmd", "attach"):
+        monkeypatch.setattr(launcher, fn,
+                            lambda *a, fn=fn: calls.append((fn, *a)) or 0)
+    try:
         tcli.main(argv)
+    except SystemExit as e:
+        assert e.code == 0
+    assert calls == [{"up": ("up", "cluster.yaml"),
+                      "down": ("down", "default"),
+                      "exec": ("exec_cmd", "default", ["ls"]),
+                      "attach": ("attach", "default")}[argv[0]]]
 
 
 def test_spawn_has_no_site_import_modes():

@@ -20,6 +20,16 @@ caught, so any failure exits non-zero):
 5. train_410m: the Llama 410m train step at full width and depth (b8 s2048,
    bf16 compute, remat "dots", flash attention); the launch counters show
    every step went through all three kernels.
+5b. mesh_train_410m, ring_410m (after lora_train_410m): train_410m's step
+   through the sharded build_train_step on a one-rank NCCL group and
+   MeshConfig(fsdp=-1), 2 + 5 steps: losses equal to train_410m's (first
+   1e-6 relative, later 1e-4), 48/24/24 launches a step, step ms beside
+   train_410m's. Then ring_attention over 4 in-process sequence shards at
+   b8 s2048 h16 d64 bf16 causal, forward and backward on the flash
+   kernels, against flash_attention over the whole sequence and the same
+   schedule on the plain versions (bf16: out 2e-2 max abs, grads 1e-2
+   relative L2), f32 at b2 s512 GQA (2e-5 / 5e-4) and d=128; 10/10/10
+   launches; ms and traced device ms beside the unsharded flash.
 6. serve_parity: the debug model in f32 with TF32 off: decode_step logits
    and cache card vs CPU (left-padded batch, per-row depths, chunked
    prefill) to 1e-4, and the engine's greedy streams card vs CPU, token for
@@ -235,6 +245,16 @@ alone, on a cluster of their own.
 
 runs device, build, train_410m (for its first loss and step time) and
 launcher_410m alone.
+
+    python3 chip_smoke.py --mesh
+
+runs device, build, train_410m (for its losses and step time),
+mesh_train_410m and ring_410m alone.
+
+    python3 chip_smoke.py --gloo-cuda
+
+says which gloo collectives take CUDA tensors on this machine (each in a
+2-rank group of its own, both ranks on the one card).
 
     python3 chip_smoke.py --seed N [...]
 
@@ -754,28 +774,34 @@ def batch_410m(vocab: int, device: str = "cuda") -> dict:
 
 
 def run_410m_steps(cfg, params: dict, steps: int, trainable_keys=None,
-                   batch: dict | None = None) -> dict:
+                   batch: dict | None = None, mesh=None) -> dict:
     """build_train_step over `params` (consumed: the step holds its own
     copy), 2 warm-up steps, then `steps` timed steps on one batch
     (`batch_410m` unless given), with the launch counters and the peak
     memory read over the timed steps only. Returns the readings and the
     step, state and batch. The first warm-up step's ms includes what a
-    first call pays (library handles, the allocator's growth)."""
+    first call pays (library handles, the allocator's growth). With a
+    `mesh`, the sharded step over it (the model's logical axes, the batch
+    through shard_batch)."""
     import gc
 
     import torch
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.cuda.flash_attention import launches, reset_launches
-    from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+    from ray_tpu_torch.parallel.spmd import (adamw, build_train_step,
+                                             shard_batch)
 
+    axes = None if mesh is None else llama.param_logical_axes(cfg)
     step, state = build_train_step(
-        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params,
-        trainable_keys=trainable_keys)
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(3e-4), params, axes,
+        mesh, trainable_keys=trainable_keys)
     params.clear()
     gc.collect()
     if batch is None:
         batch = batch_410m(cfg.vocab_size)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
     losses, moe_aux = [], []
     t0 = time.perf_counter()
     for _ in range(2):                                   # warm-up
@@ -835,6 +861,250 @@ def phase_train_410m(device_name: str, steps: int) -> dict:
             "tokens_per_s": run["tokens_per_s"], "mfu": mfu,
             "peak_mem_gb": run["peak_mem_gb"],
             **profile_step(run["step"], run["state"], run["batch"])}
+
+
+MESH_FIRST_RTOL = 1e-6    # the same computation: the first loss
+MESH_LATER_RTOL = 1e-4    # after AdamW steps, as the train phases' parity
+
+
+def phase_mesh_train_410m(full: dict, steps: int) -> dict:
+    """train_410m's step through the sharded build_train_step: a one-rank
+    NCCL process group, MeshConfig(fsdp=-1) over it (every axis of size 1:
+    the rule table keeps every leaf whole, no collective runs), the same
+    config, seed and batch. Holds the losses against train_410m's and the
+    launch counts at 48/24/24 a step; the step ms beside train_410m's is
+    the cost of the mesh plumbing."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import (MeshConfig, free_address,
+                                             init_process_group)
+
+    init_process_group(1, 0, free_address())
+    try:
+        mesh = MeshConfig(fsdp=-1).build()
+        cfg = config_410m()
+        run = run_410m_steps(cfg, llama.init_params(cfg, seed=0), steps,
+                             mesh=mesh)
+        backend = dist.get_backend()
+        mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        del run["step"], run["state"]
+    finally:
+        dist.destroy_process_group()
+    ref = full["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref)]
+    ok = (rel[0] <= MESH_FIRST_RTOL
+          and all(r <= MESH_LATER_RTOL for r in rel[1:])
+          and run["launches"] == run["expected_launches"])
+    emit("mesh_train_410m", backend=backend, mesh=mesh_shape,
+         losses=run["losses"], train_410m_losses=ref,
+         first_rel_diff=rel[0], max_rel_diff=max(rel),
+         tolerance={"first": MESH_FIRST_RTOL, "later": MESH_LATER_RTOL},
+         step_ms=run["step_ms"], train_410m_step_ms=full["step_ms"],
+         mesh_overhead_ms=run["step_ms"] - full["step_ms"],
+         tokens_per_s=run["tokens_per_s"], peak_mem_gb=run["peak_mem_gb"],
+         launches=run["launches"],
+         expected_launches=run["expected_launches"], steps=steps, ok=ok)
+    if not ok:
+        raise AssertionError("the 410m step over a one-card mesh differs "
+                             "from train_410m's")
+    return run
+
+
+RING_SHARDS = 4
+RING_BF16_OUT_ABS = 2e-2     # phase_kernels' bf16 bounds: bf16 output
+RING_BF16_GRAD_L2 = 1e-2     # rounding, and ds/p rounded before products
+RING_F32_FWD, RING_F32_BWD = 2e-5, 5e-4   # the f32 kernels' bounds
+
+
+def _leaves(tensors, n=1):
+    """Each tensor cut into n sequence shards, as contiguous leaves that
+    take gradients."""
+    return [[t.clone().requires_grad_(True) for t in x.chunk(n, 1)]
+            for x in tensors]
+
+
+def _ring_call(ra, shards, dos, causal=True, ops=None):
+    """ring_attention_local over the shards, forward and backward: the
+    outputs and the gradients, per shard."""
+    import torch
+
+    outs = ra.ring_attention_local(*shards, causal=causal, ops=ops)
+    grads = torch.autograd.grad(outs, [t for s in shards for t in s], dos)
+    return outs, grads
+
+
+def _ring_run(ra, q, k, v, do, n, causal=True, ops=None):
+    """_ring_call over n sequence shards of q, k, v (cut here): (out, dq,
+    dk, dv) put back together."""
+    import torch
+
+    outs, grads = _ring_call(ra, _leaves((q, k, v), n), list(do.chunk(n, 1)),
+                             causal, ops)
+    out = torch.cat([o.detach() for o in outs], 1)
+    return (out, *(torch.cat(grads[i * n:(i + 1) * n], 1)
+                   for i in range(3)))
+
+
+def _flash_call(fa, qkv, do, causal=True):
+    import torch
+
+    out = fa.flash_attention(*qkv, causal=causal)
+    return (out.detach(), *torch.autograd.grad(out, qkv, do))
+
+
+def _flash_run(fa, q, k, v, do, causal=True):
+    return _flash_call(fa, [s[0] for s in _leaves((q, k, v))], do, causal)
+
+
+def _ring_errors(got, want, dtype) -> dict:
+    """Each of out, dq, dk, dv against want, in phase_kernels' terms."""
+    import torch
+
+    names = ("out", "dq", "dk", "dv")
+    if dtype == torch.float32:
+        tols = (RING_F32_FWD,) + (RING_F32_BWD,) * 3
+        return {n: _allclose_err(a, b, t)
+                for n, a, b, t in zip(names, got, want, tols)}
+    errs = {"out": _max_abs(got[0], want[0]) / RING_BF16_OUT_ABS}
+    errs.update({n: _rel_l2(a, b) / RING_BF16_GRAD_L2
+                 for n, a, b in zip(names[1:], got[1:], want[1:])})
+    return errs
+
+
+def phase_ring_410m() -> dict:
+    """ring_attention over RING_SHARDS in-process sequence shards of the
+    410m step's attention (b8 s2048 h16 d64, bf16, causal), forward and
+    backward on the flash kernels: against flash_attention over the whole
+    sequence and against the same schedule on the kernels' plain versions.
+    Then f32 at a small size and d=128 (the 410m-hd128 preset's heads).
+    Each check is a ratio to its tolerance (<= 1 passes). Launches from the
+    main case only: 10 forward launches and 10 + 10 backward for 4 causal
+    shards. Times ring vs unsharded flash, forward + backward, and traces
+    one ring call for its device time."""
+    import torch
+
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = RING_SHARDS
+    checks, errors = {}, {}
+    q, k, v, do = _inputs(8, 2048, 2048, 16, 16, 64, bf16, 7)
+    fa.reset_launches()
+    ring = _ring_run(ra, q, k, v, do, n)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    flash = _flash_run(fa, q, k, v, do)
+    checks["bf16_main_vs_flash"] = _ring_errors(ring, flash, bf16)
+    plain = _ring_run(ra, q, k, v, do, n, ops=ra.PLAIN_OPS)
+    checks["bf16_main_vs_plain_schedule"] = _ring_errors(ring, plain, bf16)
+    errors["flash_fwd"] = _max_abs(ring[0], plain[0])
+    errors["flash_bwd_dq"] = _max_abs(ring[1], plain[1])
+    errors["flash_bwd_dkv"] = max(_max_abs(ring[2], plain[2]),
+                                  _max_abs(ring[3], plain[3]))
+    # timed on shards and leaves made once: the ring's forward and
+    # backward, and flash_attention's over the whole sequence
+    shards, dos = _leaves((q, k, v), n), list(do.chunk(n, 1))
+    qkv = [s[0] for s in _leaves((q, k, v))]
+    ring_ms = time_ms(lambda: _ring_call(ra, shards, dos), n=5, runs=3)
+    flash_ms = time_ms(lambda: _flash_call(fa, qkv, do), n=5, runs=3)
+    # the ring's device time apart from the host's (flash's kernels alone:
+    # phase_kernels' times at this shape)
+    traced = profile_call(lambda: _ring_call(ra, shards, dos),
+                          "profile_ring_410m")
+    del ring, flash, plain, shards, qkv
+
+    with tf32_off():
+        qs, ks, vs, dos = _inputs(2, 512, 512, 4, 2, 64, f32, 8)
+        checks["f32_s512_gqa_vs_plain_schedule"] = _ring_errors(
+            _ring_run(ra, qs, ks, vs, dos, n),
+            _ring_run(ra, qs, ks, vs, dos, n, ops=ra.PLAIN_OPS), f32)
+        checks["f32_s512_gqa_noncausal_vs_flash"] = _ring_errors(
+            _ring_run(ra, qs, ks, vs, dos, n, causal=False),
+            _flash_run(fa, qs, ks, vs, dos, causal=False), f32)
+    q, k, v, do = _inputs(8, 2048, 2048, 8, 8, 128, bf16, 9)
+    checks["bf16_d128_vs_flash"] = _ring_errors(
+        _ring_run(ra, q, k, v, do, n), _flash_run(fa, q, k, v, do), bf16)
+    want = {"flash_fwd": n * (n + 1) // 2, "flash_bwd_dq": n * (n + 1) // 2,
+            "flash_bwd_dkv": n * (n + 1) // 2}
+    bad = {c: e for c, errs in checks.items() for e in errs.values()
+           if not e <= 1.0}
+    ok = not bad and launches == want
+    emit("ring_410m", shards=n, shape=[8, 2048, 16, 16, 64], dtype="bf16",
+         checks=checks, tolerance={
+             "bf16": {"out_max_abs": RING_BF16_OUT_ABS,
+                      "grad_rel_l2": RING_BF16_GRAD_L2},
+             "f32": {"fwd": RING_F32_FWD, "bwd": RING_F32_BWD}},
+         launches=launches, expected_launches=want, ring_ms=ring_ms,
+         flash_ms=flash_ms,
+         ring_device_busy_ms=traced["device_busy_ms"],
+         ring_device_idle_share=traced["device_idle_share"],
+         max_abs_err_vs_plain_schedule=errors, ok=ok)
+    if not ok:
+        raise AssertionError(f"ring_410m: checks over tolerance {bad}, "
+                             f"launches {launches} != {want}")
+    return {"launches": launches, "ring_ms": ring_ms, "flash_ms": flash_ms}
+
+
+_GLOO_CUDA_OPS = ("all_reduce", "all_gather", "all_to_all_single",
+                  "batch_isend_irecv")
+_GLOO_CUDA_RANK = r"""
+import sys, torch, torch.distributed as dist
+op, rank, address = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=address, rank=rank,
+                        world_size=2)
+x = torch.full((4, 8), float(rank + 1), device="cuda")
+out = torch.empty_like(x)
+if op == "all_reduce":
+    dist.all_reduce(x)
+    ok = float(x[0, 0]) == 3.0
+elif op == "all_gather":
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    ok = float(parts[1][0, 0]) == 2.0
+elif op == "all_to_all_single":
+    dist.all_to_all_single(out, x)
+    ok = float(out[2, 0]) == 2.0
+else:
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, 1 - rank),
+            dist.P2POp(dist.irecv, out, 1 - rank)]):
+        req.wait()
+    ok = float(out[0, 0]) == 2.0 - rank
+torch.cuda.synchronize()
+dist.destroy_process_group()
+sys.exit(0 if ok else 3)
+"""
+
+
+def phase_gloo_cuda() -> dict:
+    """Which gloo collectives take CUDA tensors on this machine (the
+    multi-rank checks could run as two processes on one card only over
+    gloo: NCCL refuses two ranks on one card). Each op runs in a 2-rank
+    group of its own, so one that aborts its processes hides no other."""
+    from ray_tpu_torch.parallel.mesh import free_address
+
+    verdicts = {}
+    for op in _GLOO_CUDA_OPS:
+        address = free_address()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _GLOO_CUDA_RANK, op, str(rank), address],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for rank in range(2)]
+        errs = []
+        for p in procs:
+            try:
+                errs.append(p.communicate(timeout=120)[1])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                errs.append(p.communicate()[1] + " (timed out)")
+        codes = [p.returncode for p in procs]
+        verdicts[op] = ("ok" if codes == [0, 0] else
+                        f"exit {codes}: " + errs[0].strip().splitlines()[-1]
+                        if errs[0].strip() else f"exit {codes}")
+    emit("gloo_cuda", ops=verdicts)
+    return verdicts
 
 
 def _kernel_group(name: str) -> str:
@@ -4930,6 +5200,8 @@ PHASE_GROUPS = {
         r["full"]["step_ms"])),
     "--launcher": (("full",), lambda r, seed: phase_launcher_410m(
         r["full"]["losses"][0], r["full"]["step_ms"])),
+    "--mesh": (("full",), lambda r, seed: (
+        phase_mesh_train_410m(r["full"], STEPS_410M), phase_ring_410m())),
 }
 
 
@@ -4963,6 +5235,10 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--seed"] and len(argv) >= 2:
         seed, argv = int(argv[1]), argv[2:]
 
+    if argv == ["--gloo-cuda"]:
+        phase_device()
+        phase_gloo_cuda()
+        return 0
     if argv[:1] == ["--compare"] and len(argv) == 2:
         phase_device()
         compare(argv[1])
@@ -4993,6 +5269,9 @@ def main(argv: list[str]) -> int:
     phase_moe_parity()
     lora_run = phase_lora_train_410m(info["name"], STEPS_410M, full)
     paths = {"train_410m": full["launches"],
+             "mesh_train_410m": phase_mesh_train_410m(
+                 full, STEPS_410M)["launches"],
+             "ring_410m": phase_ring_410m()["launches"],
              "lora_train_410m": lora_run["launches"],
              "moe_train_410m": phase_moe_train_410m(STEPS_410M)["launches"]}
     phase_lora_serve_410m()

@@ -7,6 +7,10 @@ device move. The JAX side is handed over as numpy arrays, for example
 A ``"lora"`` adapter subtree (``models/lora.py``) and MoE layers convert and
 are checked like the rest.
 
+Over a mesh (``parallel/mesh.py``) ``local_params_from_numpy`` cuts this
+rank's shard of every leaf by the rule table, and ``gather_params`` puts the
+shards back together on every rank (a full checkpoint from a sharded run).
+
 The RL trees (``rl/module.py``: MLP, CNN and continuous) convert through the
 same two functions: lists of layers stay lists, and a conv layer (a dict
 with a ``"meta"`` entry) has its weight moved between the JAX package's
@@ -126,3 +130,51 @@ def params_to_numpy(params: dict) -> dict:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def local_params_from_numpy(tree: dict, logical_axes: dict, mesh,
+                            rules: dict | None = None,
+                            device: str | torch.device | None = None,
+                            dtype: torch.dtype | None = None) -> dict:
+    """numpy parameter tree (the full one, the same on every rank) -> this
+    rank's local shard of each leaf, by ``logical_axes`` and the rule table,
+    as tensors on ``device`` (the card when None). Only the shard is copied
+    to the device."""
+    from ray_tpu_torch.parallel.mesh import shard_params
+
+    dev = resolve_device(device)
+    shardings = shard_params(tree, logical_axes, mesh, rules)
+
+    def convert(node, sharding):
+        if isinstance(node, dict):
+            return {k: convert(v, sharding[k]) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        part = sharding.local(torch.from_numpy(arr))
+        return part.to(device=dev, dtype=dtype, copy=True)
+
+    return convert(tree, shardings)
+
+
+def gather_params(local: dict, logical_axes: dict, mesh,
+                  rules: dict | None = None) -> dict:
+    """Every rank's local shards (as ``local_params_from_numpy`` or a
+    sharded ``build_train_step`` holds them) -> the full tree, on every
+    rank: each sharded dim all-gathered over its mesh axes, minor axis
+    first."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.mesh import shard_params, spec_axes
+
+    shardings = shard_params(local, logical_axes, mesh, rules)
+
+    def gather(node, sharding):
+        if isinstance(node, dict):
+            return {k: gather(v, sharding[k]) for k, v in node.items()}
+        t = node.detach()
+        for dim, entry in enumerate(sharding.spec):
+            for axis in reversed(spec_axes(entry)):
+                t = col._all_gather(t, dim, mesh.get_group(axis))
+        return t
+
+    return gather(local, shardings)

@@ -26,8 +26,19 @@ training half and the KV-cache decode half.
 * MoE: ``moe_num_experts > 0`` replaces every dense FFN with
   ``ops.moe.moe_ffn``, whose aux loss reaches ``loss_fn``. The decode path
   has no MoE FFN, as the reference's has none.
-
-Not in this slice: ring/Ulysses attention (multi-GPU).
+* Sharded (inside ``parallel.spmd.build_train_step`` over a mesh): every
+  leaf has logical axes (``param_logical_axes``), and the forward reads the
+  step's ``Sharded`` context once and hands it down. Each block all-gathers
+  its FSDP-sharded weights itself, so a checkpointed block gathers them again
+  in its recompute (ZeRO-3 by layer); heads and the FFN's hidden dim stay
+  local to each ``tensor`` rank, with Megatron's f (``psum_grad``) where a
+  replicated activation enters a column-parallel matmul and g (``psum``)
+  after the row-parallel ``wo`` and ``w_down``; experts stay local to each
+  ``expert`` rank (``ops.moe``); under a ``seq`` axis attention is ring
+  (the default) or Ulysses, and rope takes global positions
+  (``rank * s_local + arange``), where the reference restarts each shard at
+  0. The embedding and the LM head are gathered whole (over ``tensor`` too:
+  the cross entropy runs replicated on the tensor ranks).
 """
 
 from __future__ import annotations
@@ -50,6 +61,9 @@ from ray_tpu_torch.ops.cross_entropy import fused_lm_head_cross_entropy
 from ray_tpu_torch.ops.moe import MoEConfig, moe_ffn
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR,
+                                         Sharded, current_sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +84,8 @@ class LlamaConfig:
     remat_save_attn: bool = False
     # "dots": save matmul outputs; "nothing": recompute the whole block
     remat_policy: str = "dots"
-    # "auto" | "xla" | "flash" ("ring" | "ulysses" are not ported yet)
+    # "auto" | "xla" | "flash" | "ring" | "ulysses" (the last two over a
+    # seq axis larger than 1, where "auto" means ring)
     attn_impl: str = "auto"
     # tiles of the plain flash version (the CUDA kernel picks its own)
     attn_block_q: int = 512
@@ -149,16 +164,9 @@ def config_for(name: str, **overrides) -> LlamaConfig:
     return LlamaConfig(**kw)
 
 
-def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} needs the multi-GPU slice")
-
-
 # ------------------------------------------------------------------- params
 def param_shapes(cfg: LlamaConfig) -> dict:
     """The parameter tree of ``init_params`` with shapes as leaves."""
-    _check_ported(cfg)
     d, h, L = cfg.dim, cfg.hidden_dim, cfg.n_layers
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     shapes = {
@@ -211,53 +219,196 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     return params
 
 
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Same tree structure as init_params, leaves = logical-axis tuples
+    consumed by parallel.mesh.shard_params (the reference's tree)."""
+    layer_axes: dict = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "attn_norm": ("layers", None),
+        "mlp_norm": ("layers", None),
+    }
+    if cfg.moe:
+        layer_axes.update({
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layer_axes.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layer_axes,
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+# ----------------------------------------------------------- sharded compute
+# Megatron's row-parallel projections (input dim on `tensor`, partial sums
+# out); the others are column-parallel (output dim on `tensor`)
+_ROW_PARALLEL = ("wo", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Dist:
+    """One forward's view of the step's Sharded context: each layer leaf's
+    logical axes and spec without the stacked ``layers`` dim, and the groups
+    the block collects over (None where an axis is absent or of size 1)."""
+    sharded: Sharded
+    layer_plan: dict
+    tp: object
+    ep: object
+    seq: object
+    seq_rank: int
+    seq_size: int
+
+    def gather(self, layer: dict) -> dict:
+        return {name: self.sharded.gather(w, *self.layer_plan[name])
+                for name, w in layer.items()}
+
+
+def _dist(cfg: LlamaConfig, params: dict) -> _Dist | None:
+    """The forward's _Dist, or None outside a sharded step."""
+    sharded = current_sharding()
+    if sharded is None:
+        return None
+    plan = {}
+    paths = [("layers", n) for n in params["layers"]]
+    if "lora" in params:
+        paths += [("lora", "layers", n) for n in params["lora"]["layers"]]
+    for path in paths:
+        logical, spec = sharded.leaf(*path)
+        if spec[0] is not None:
+            raise ValueError(f"{'/'.join(path)}: the stacked layers dim "
+                             f"stays replicated; the rules map it to "
+                             f"{spec[0]}")
+        plan[path[-1]] = (logical[1:], spec[1:])
+    t = sharded.size(AXIS_TENSOR)
+    for name, heads in (("n_heads", cfg.n_heads),
+                        ("n_kv_heads", cfg.n_kv_heads)):
+        if heads % t:
+            raise ValueError(f"{name}={heads} does not divide over a "
+                             f"tensor axis of {t}")
+    if cfg.moe and sharded.size(AXIS_SEQ) > 1:
+        raise ValueError("MoE routes each row's tokens together; a seq axis "
+                         "larger than 1 would route each shard apart")
+    return _Dist(sharded, plan, sharded.group(AXIS_TENSOR),
+                 sharded.group(AXIS_EXPERT), sharded.group(AXIS_SEQ),
+                 sharded.rank(AXIS_SEQ), sharded.size(AXIS_SEQ))
+
+
 # ------------------------------------------------------------------ forward
-def _attention(cfg: LlamaConfig, q, k, v):
-    _check_ported(cfg)
-    return dot_product_attention(q, k, v, causal=True, impl=cfg.attn_impl,
+def _attention(cfg: LlamaConfig, q, k, v, dist: _Dist | None = None):
+    """Causal attention. Under a seq axis larger than 1: ring (also for
+    "auto") or Ulysses over the seq group; "flash" or "xla" there would
+    attend within the shard only, and raise."""
+    impl = cfg.attn_impl
+    seq = dist.seq if dist is not None else None
+    if seq is not None:
+        from ray_tpu_torch.ops import ring_attention as ra
+
+        if impl in ("auto", "ring"):
+            return ra.ring_attention(q, k, v, seq, causal=True)
+        if impl == "ulysses":
+            return ra.ulysses_attention(q, k, v, seq, causal=True)
+        raise ValueError(
+            f"attn_impl={impl!r} attends within one sequence shard; under a "
+            f"seq axis of {dist.seq_size} use 'ring', 'ulysses' or 'auto'")
+    if impl in ("ring", "ulysses"):
+        raise ValueError(
+            f"attn_impl={impl!r} needs a seq process group: run the model "
+            "inside build_train_step over a mesh with a seq axis larger "
+            "than 1 (the reference's ring and Ulysses run only inside "
+            "shard_map with the axis bound)")
+    return dot_product_attention(q, k, v, causal=True, impl=impl,
                                  block_q=cfg.attn_block_q,
                                  block_k=cfg.attn_block_k)
 
 
-def _proj(cfg: LlamaConfig, layer: dict, name: str, h: torch.Tensor):
+def _proj(cfg: LlamaConfig, layer: dict, name: str, h: torch.Tensor,
+          tp=None, h_tp: torch.Tensor | None = None):
     """Matmul against one layer weight in the compute dtype, plus the LoRA
     low-rank path where the layer carries ``<name>_a``/``<name>_b`` (shared
     by the train and decode blocks, so adapters act alike in both). The
-    [in, out] delta is never formed."""
+    [in, out] delta is never formed.
+
+    With a tensor group ``tp``: a column-parallel weight (its output dim
+    local) takes ``h_tp = psum_grad(h)``, and the adapter's replicated
+    ``h @ A`` gets its own psum_grad; a row-parallel one (``wo``,
+    ``w_down``: its input dim local) gives partial sums, each psum'd."""
     dt = cfg.dtype
-    out = h @ layer[name].to(dt)
     a = layer.get(name + "_a")
+    scale = None if a is None else torch.tensor(
+        cfg.lora_alpha / a.shape[-1], dtype=dt)
+    if tp is None:
+        out = h @ layer[name].to(dt)
+        if a is not None:
+            out = out + ((h @ a.to(dt)) @ layer[name + "_b"].to(dt)) * scale
+        return out
+    if name in _ROW_PARALLEL:
+        out = col.psum(h @ layer[name].to(dt), tp)
+        if a is not None:
+            out = out + (col.psum(h @ a.to(dt), tp)
+                         @ layer[name + "_b"].to(dt)) * scale
+        return out
+    out = h_tp @ layer[name].to(dt)
     if a is not None:
-        scale = cfg.lora_alpha / a.shape[-1]
-        out = out + ((h @ a.to(dt)) @ layer[name + "_b"].to(dt)
-                     ) * torch.tensor(scale, dtype=dt)
+        out = out + (col.psum_grad(h @ a.to(dt), tp)
+                     @ layer[name + "_b"].to(dt)) * scale
     return out
 
 
-def _block(cfg: LlamaConfig, x, layer, cos, sin, positions):
+def _block(cfg: LlamaConfig, x, layer, cos, sin, positions,
+           dist: _Dist | None = None):
     """One transformer block. x: [b, s, d] (cfg.dtype).
-    Returns (x, moe_aux_loss); aux is 0 for the dense FFN."""
+    Returns (x, moe_aux_loss); aux is 0 for the dense FFN.
+
+    With ``dist`` (a sharded step), ``layer`` holds this rank's shards: the
+    block gathers what it does not compute sharded, and runs its local
+    heads, FFN columns and experts."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tp = None
+    if dist is not None:
+        layer = dist.gather(layer)
+        tp = dist.tp
+        t = col.group_size(tp)
+        nh, nkv = nh // t, nkv // t
+
+    def proj(name, h, h_tp=None):
+        return _proj(cfg, layer, name, h, tp, h_tp)
 
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _proj(cfg, layer, "wq", h).reshape(b, s, nh, hd)
-    kk = _proj(cfg, layer, "wk", h).reshape(b, s, nkv, hd)
-    vv = _proj(cfg, layer, "wv", h).reshape(b, s, nkv, hd)
+    h_tp = col.psum_grad(h, tp)
+    q = proj("wq", h, h_tp).reshape(b, s, nh, hd)
+    kk = proj("wk", h, h_tp).reshape(b, s, nkv, hd)
+    vv = proj("wv", h, h_tp).reshape(b, s, nkv, hd)
     q = apply_rope(q, cos, sin, positions)
     kk = apply_rope(kk, cos, sin, positions)
-    attn = _attention(cfg, q, kk, vv).reshape(b, s, nh * hd)
-    x = x + _proj(cfg, layer, "wo", attn)
+    attn = _attention(cfg, q, kk, vv, dist).reshape(b, s, nh * hd)
+    x = x + proj("wo", attn)
 
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     if cfg.moe:
         moe_params = {k: layer[k] for k in ("router", "w_gate", "w_up",
                                             "w_down")}
-        out, aux = moe_ffn(moe_params, h, cfg.moe_config())
+        out, aux = moe_ffn(moe_params, h, cfg.moe_config(),
+                           ep=None if dist is None else dist.ep, tp=tp)
         return x + out, aux
-    gate = F.silu(_proj(cfg, layer, "w_gate", h))
-    up = _proj(cfg, layer, "w_up", h)
-    x = x + _proj(cfg, layer, "w_down", gate * up)
+    h_tp = col.psum_grad(h, tp)
+    gate = F.silu(proj("w_gate", h, h_tp))
+    up = proj("w_up", h, h_tp)
+    x = x + proj("w_down", gate * up)
     return x, x.new_zeros((), dtype=torch.float32)
 
 
@@ -305,11 +456,17 @@ def _stacked_layers(params: dict) -> dict:
 def backbone(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
              positions: torch.Tensor | None = None, with_aux: bool = False):
     """tokens: [b, s] int -> final hidden states [b, s, d] (cfg.dtype), or
-    (hidden, moe_aux_loss) when with_aux."""
-    _check_ported(cfg)
-    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    (hidden, moe_aux_loss) when with_aux. In a sharded step ``tokens`` is
+    this rank's slice (``parallel.spmd.shard_batch``): under a seq axis
+    positions default to the shard's global ones."""
+    dist = _dist(cfg, params)
+    x = F.embedding(tokens, _leaf(params, dist, "embed")).to(cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
+    if positions is None and dist is not None and dist.seq is not None:
+        s_local = tokens.shape[1]
+        positions = dist.seq_rank * s_local + torch.arange(
+            s_local, device=x.device)
     layers = _stacked_layers(params)
     names = list(layers)
     per_layer = zip(*(layers[n].unbind(0) for n in names))
@@ -317,14 +474,23 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     aux_sum = x.new_zeros((), dtype=torch.float32)
     for weights in per_layer:
         x, aux = block(cfg, x, dict(zip(names, weights)), cos, sin,
-                       positions)
+                       positions, dist)
         aux_sum = aux_sum + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x, aux_sum) if with_aux else x
 
 
-def _head_matrix(params: dict, cfg: LlamaConfig) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _leaf(params: dict, dist: _Dist | None, name: str) -> torch.Tensor:
+    """A top-level leaf, gathered whole in a sharded step."""
+    if dist is None:
+        return params[name]
+    return dist.sharded.gather(params[name], *dist.sharded.leaf(name))
+
+
+def _head_matrix(params: dict, cfg: LlamaConfig,
+                 dist: _Dist | None = None) -> torch.Tensor:
+    head = (_leaf(params, dist, "embed").T if cfg.tie_embeddings
+            else _leaf(params, dist, "lm_head"))
     return head.to(cfg.dtype)
 
 
@@ -332,7 +498,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
             positions: torch.Tensor | None = None) -> torch.Tensor:
     """tokens: [b, s] int -> logits [b, s, vocab] (f32)."""
     x = backbone(params, tokens, cfg, positions)
-    return (x @ _head_matrix(params, cfg)).float()
+    return (x @ _head_matrix(params, cfg, _dist(cfg, params))).float()
 
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig):
@@ -343,7 +509,7 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig):
     """
     x, moe_aux = backbone(params, batch["tokens"], cfg, with_aux=True)
     ce_loss, n_tok = fused_lm_head_cross_entropy(
-        x, _head_matrix(params, cfg), batch["targets"])
+        x, _head_matrix(params, cfg, _dist(cfg, params)), batch["targets"])
     loss = ce_loss + moe_aux
     return loss, {"loss": ce_loss, "tokens": n_tok, "moe_aux": moe_aux}
 
@@ -450,7 +616,6 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     before anything is written: the reference gathers NaN there, and on
     the card the gather is a device-side assert. The check reads the
     largest position back to the host (one small copy per call)."""
-    _check_ported(cfg)
     if cfg.moe:
         raise ValueError(
             "decode_step has no MoE FFN: the reference's decode block takes "

@@ -99,7 +99,8 @@ def init_lora_params(cfg, lora: LoraConfig, seed: int = 0,
 def lora_logical_axes(cfg, lora: LoraConfig) -> dict:
     """Logical axes of the adapter subtree, as the reference names them: A
     shards its input dim like the base in-axis, B its output dim like the
-    base out-axis. Data for the multi-GPU slice; one device ignores it."""
+    base out-axis (``parallel.mesh.shard_params`` places the adapters by
+    them in a sharded step; one device ignores them)."""
     layers: dict = {}
     for name in lora.targets:
         in_ax, out_ax = _TARGET_AXES[name]

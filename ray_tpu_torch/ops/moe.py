@@ -12,7 +12,15 @@ the GShard/Switch einsum formulation.
   (a stable descending sort), so a router with tied logits routes the same
   tokens to the same experts in both packages.
 
-Expert sharding over devices waits for the multi-GPU slice.
+Expert sharding (``ep``, the ``expert`` group of a sharded step): each rank
+holds E/n experts' ``w_gate``, ``w_up`` and ``w_down`` and the router stays
+replicated. The rule table shards the batch over data x fsdp, not over
+``expert``, so every expert rank sees the same tokens: each routes them all
+(the replicated router and aux loss), runs its local experts on its slice of
+the dispatch tensor, and the partial combines are summed over the group,
+which is what GSPMD makes of the reference's einsums under those rules. With
+a ``tensor`` group (``tp``) the experts' hidden dim is split as the dense
+FFN's is.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,11 +121,16 @@ def _route(router_logits: torch.Tensor, cfg: MoEConfig, capacity: int):
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
-            activation=F.silu) -> tuple[torch.Tensor, torch.Tensor]:
+            activation=F.silu, ep=None,
+            tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [b, s, d] -> (out [b, s, d], weighted aux_loss scalar).
 
     Static-shape capacity dispatch, routed per batch row, so the one-hot
-    dispatch tensor is [b, s, E, C] with C ~ s/E."""
+    dispatch tensor is [b, s, E, C] with C ~ s/E.
+
+    With an ``ep`` group the expert weights are this rank's
+    ``[E / n, ...]`` slice; with a ``tp`` group their hidden dim is this
+    rank's slice too. x is replicated over both groups."""
     b, s, d = x.shape
     E = cfg.num_experts
     capacity = max(1, int(cfg.capacity_factor * cfg.top_k * s / E))
@@ -126,10 +140,16 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     router_logits = x.float() @ params["router"].float()
     dispatch, combine, aux_loss = _route(router_logits, cfg, capacity)
     aux_loss = aux_loss.mean()
+    # this rank's experts: the routing is replicated, so the combine
+    # weights' gradient comes back whole (split's backward gathers it);
+    # the expert path's share of x's gradient is summed over both groups
+    dispatch = col.split(dispatch, -2, ep)
+    combine = col.split(combine, -2, ep)
+    xe = col.psum_grad(col.psum_grad(x, ep), tp)
 
     dt = x.dtype
     # dispatch: [g, s, E, C] x [g, s, d] -> expert inputs [E, g, C, d]
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xe)
     # grouped SwiGLU FFN over the leading expert dim
     gate = activation(torch.einsum("egcd,edh->egch", expert_in,
                                    params["w_gate"].to(dt)))
@@ -138,4 +158,4 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
                               params["w_down"].to(dt))
     # combine: [g, s, E, C] x [E, g, C, d] -> [g, s, d]
     out = torch.einsum("gsec,egcd->gsd", combine.to(dt), expert_out)
-    return out, aux_loss * cfg.aux_loss_weight
+    return col.psum(col.psum(out, tp), ep), aux_loss * cfg.aux_loss_weight

@@ -4,9 +4,9 @@
 The port of ray_tpu/train/config.py. ``ScalingConfig.use_gpu`` (the
 reference's ``use_tpu``) leases each worker one ``"GPU"`` and defaults to
 True: a worker's ``get_device()`` is then the card, and a run on the CPU
-asks for it with ``use_gpu=False``. The **mesh axes** and the topology hint
-stay as fields for the multi-GPU slice (ROADMAP.md item 6); on one card
-``get_mesh()`` raises.
+asks for it with ``use_gpu=False``. The **mesh axes** are laid over the
+workers, one rank each (``get_mesh()``); more than one GPU worker in a mesh
+needs per-lease card pinning (ROADMAP.md item 6) and raises.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ class ScalingConfig:
     use_gpu: bool = True
     resources_per_worker: Optional[dict] = None
     placement_strategy: str = "PACK"
-    # Mesh axes over the GLOBAL device set (all workers' chips), e.g.
-    # {"data": -1, "fsdp": 8, "tensor": 4}. None = pure DP over all chips.
+    # Mesh axes over the workers (one device each), e.g.
+    # {"data": -1, "fsdp": 2, "tensor": 2}. None = pure DP over them.
     mesh: Optional[dict[str, int]] = None
     # Slice topology hint for slice-aware placement (the reference's
     # "v5p-16"; ref analog: TPU-v4-16-head resources,

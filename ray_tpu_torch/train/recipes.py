@@ -51,8 +51,9 @@ def corpus_pretrain_loop(config: dict):
       lr, steps            — SGD rate / max train steps (corpus may end
                              earlier; the loop stops at either)
       checkpoint_every     — steps between checkpointed reports (def. 5)
-      use_mesh             — shard batches onto the ScalingConfig mesh
-                             (the multi-GPU slice: raises on one card)
+      use_mesh             — build the ScalingConfig mesh first
+                             (get_mesh; the ingest already hands each
+                             rank its own slice of the corpus)
       trace_dir            — debug/test hook: persist the consumed token
                              ids per step (trace_dir/rank{r}/step_*.npy);
                              re-executed steps overwrite, so the dir
@@ -199,7 +200,11 @@ def lora_finetune_loop(config: dict):
     params + LoRA adapters on ``get_device()``, and trains ONLY the
     adapters (build_train_step(trainable_keys=("lora",)) — the backward
     computes no base-weight gradients and the optimizer holds moments
-    only for A/B).
+    only for A/B). With ``ScalingConfig.mesh``, or more than one worker,
+    the step is sharded over ``get_mesh()`` by the rule table: every rank
+    draws the mesh's global batch (``batch_fn(step, 0)``), takes its slice
+    (``shard_batch``), and checkpoints its own shards of the adapters and
+    their moments.
 
     config keys:
       preset        — llama preset name (default "debug")
@@ -223,11 +228,14 @@ def lora_finetune_loop(config: dict):
 
     from ray_tpu_torch import train
     from ray_tpu_torch.models import llama, lora
-    from ray_tpu_torch.parallel.spmd import adamw, build_train_step
+    from ray_tpu_torch.parallel.spmd import (adamw, build_train_step,
+                                             shard_batch)
     from ray_tpu_torch.train.checkpoint import Checkpoint, save_pytree
 
     ctx = train.get_context()
     device = ctx.get_device()
+    mesh = (ctx.get_mesh() if ctx.mesh_axes is not None
+            or ctx.get_world_size() > 1 else None)
 
     overrides = dict(config.get("model_overrides") or {})
     overrides.setdefault("lora_alpha", config.get("lora_alpha", 16.0))
@@ -247,10 +255,14 @@ def lora_finetune_loop(config: dict):
                                             device=device)}
 
     loss = lambda p, b: llama.loss_fn(p, b, cfg)  # noqa: E731
-    # the step holds its own copy of the params, on the device (one
-    # device: no logical axes to give)
+    # the step holds its own copy of the params (this rank's shards over a
+    # mesh), on the device
+    axes = None
+    if mesh is not None:
+        axes = {**llama.param_logical_axes(cfg),
+                "lora": lora.lora_logical_axes(cfg, lcfg)}
     step, state = build_train_step(
-        loss, adamw(config.get("lr", 1e-3)), params,
+        loss, adamw(config.get("lr", 1e-3)), params, axes, mesh,
         grad_accum=config.get("grad_accum", 1),
         trainable_keys=("lora",), device=device)
     del params
@@ -290,6 +302,12 @@ def lora_finetune_loop(config: dict):
         return {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
 
     make_batch = batch_fn or synthetic
+    if mesh is None:
+        def place(i):
+            return _to_device(make_batch(i, rank), device)
+    else:
+        def place(i):
+            return shard_batch(make_batch(i, 0), mesh)
     report_every = config.get("report_every", 10)
     steps = config.get("steps", 50)
 
@@ -304,13 +322,12 @@ def lora_finetune_loop(config: dict):
     for i in range(start_step, steps):
         if rec is not None:
             with rec.phase("h2d"):
-                batch = _to_device(make_batch(i, rank), device)
+                batch = place(i)
             with rec.phase("step"):
                 state, aux = step(state, batch)
                 _sync(device)
         else:
-            batch = _to_device(make_batch(i, rank), device)
-            state, aux = step(state, batch)
+            state, aux = step(state, place(i))
         if (i + 1) % report_every == 0 or i == steps - 1:
             last_loss = float(aux["loss"])
             if first_loss is None:

@@ -6,10 +6,13 @@ checkpoint shard into run storage and queues the metrics row; the
 controller drains rows via a concurrent actor method (threaded actor).
 
 The port of ray_tpu/train/session.py. ``get_device()`` (Ray's
-``ray.train.torch.get_device``) takes the place of a one-device mesh:
-the card when the worker was set up with ``use_gpu``, and never a quiet
-fall back to the CPU; ``get_mesh()`` waits for the multi-GPU slice
-(ROADMAP.md item 6).
+``ray.train.torch.get_device``) is the card when the worker was set up
+with ``use_gpu``, and never a quiet fall back to the CPU. ``get_mesh()``
+builds ``ScalingConfig.mesh`` over the workers: in the reference a
+worker's mesh spans its host's local devices; in the port one process
+owns one device, so the mesh spans the workers, and its first call starts
+the process group across them (gloo with ``use_gpu=False``, NCCL
+otherwise).
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ class TrainContext:
                  experiment_name: str, latest_checkpoint: Optional[str],
                  mesh_axes: Optional[dict] = None,
                  ingest_spec=None, run_id: Optional[str] = None,
-                 node_id: str = "", use_gpu: bool = False):
+                 node_id: str = "", use_gpu: bool = False,
+                 collective_group: Optional[str] = None):
         self.rank = rank
+        self.collective_group = collective_group
+        self._mesh = None
         self.use_gpu = use_gpu
         self.world_size = world_size
         self.experiment_path = experiment_path
@@ -92,12 +98,56 @@ class TrainContext:
             return None
         return Checkpoint(self._latest_checkpoint_dir)
 
-    def get_mesh(self, devices=None):
-        """The reference's mesh over ScalingConfig.mesh: a device mesh
-        across cards is the multi-GPU slice."""
-        raise NotImplementedError(
-            "get_mesh() needs the multi-GPU slice (ROADMAP.md item 6); on "
-            "one card use get_device()")
+    def get_mesh(self):
+        """The ``DeviceMesh`` of ScalingConfig.mesh (``{"data": -1}`` when
+        None) across the workers, one rank each, built once. The first call
+        starts the default process group (every worker must call it): gloo
+        for ``use_gpu=False``, NCCL for the card. GPU workers beyond one
+        need each lease pinned to its own card, which the port does not do
+        yet (ROADMAP.md item 6): every worker would open cuda:0, and NCCL
+        refuses two ranks on one card."""
+        if self._mesh is not None:
+            return self._mesh
+        import torch.distributed as dist
+
+        from ray_tpu_torch.parallel.mesh import build_mesh, init_process_group
+
+        if self.use_gpu and self.world_size > 1:
+            raise NotImplementedError(
+                "a mesh across GPU workers needs each lease pinned to its own "
+                "card (ROADMAP.md item 6); use num_workers=1 on one card, or "
+                "use_gpu=False for gloo CPU ranks")
+        device = self.get_device()
+        if not dist.is_initialized():
+            init_process_group(self.world_size, self.rank,
+                               self._rendezvous_address(), device=device)
+        self._mesh = build_mesh(dict(self.mesh_axes or {"data": -1}),
+                                device)
+        return self._mesh
+
+    def _rendezvous_address(self) -> str:
+        """Rank 0's ``tcp://ip:port`` for the process group, handed to the
+        others over the workers' host collective group."""
+        from ray_tpu_torch.parallel.mesh import free_address
+
+        if self.world_size == 1:
+            return free_address()
+        from ray_tpu_torch.util import collective
+        from ray_tpu_torch.util.collective.collective import _host_ip
+
+        mine = free_address(_host_ip()) if self.rank == 0 else None
+        group = collective.get_group(self.collective_group)
+        return group.gather_obj(mine)[0]
+
+    def close_process_group(self):
+        """Destroy this process's default process group, if one was
+        started (the loop ended, or the worker is torn down)."""
+        import sys
+
+        dist = sys.modules.get("torch.distributed")
+        self._mesh = None
+        if dist is not None and dist.is_initialized():
+            dist.destroy_process_group()
 
     def get_device(self):
         """The ``torch.device`` this worker trains on: ``cuda`` when the

@@ -6,10 +6,11 @@ wrapped in a Tune trial). The port of ray_tpu/train/trainer.py, whose
 `JaxTrainer` this replaces.
 
 Each worker is one GPU lease; the user loop asks the session for its
-device (`train.get_context().get_device()`) and builds a train step on it
+device (`train.get_context().get_device()`) or for the mesh across the
+workers (`get_mesh()`, which starts the torch process group, the
+reference's train/torch/config.py:66) and builds a train step on it
 (ray_tpu_torch.parallel.spmd). Host-plane rendezvous rides the collective
-group the WorkerGroup sets up over GCS KV. The torch-backend process
-group across cards (train/torch/config.py:66) is ROADMAP.md item 6.
+group the WorkerGroup sets up over GCS KV.
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ group (util/collective) for barriers and small allreduces. No card is
 pinned per lease yet (ROADMAP.md item 6), so on one card every GPU worker
 uses it. The worker actor is threaded (max_concurrency=2) so the
 controller can drain results while the user loop runs.
+
+The process group a loop's ``get_mesh()`` starts across the workers
+(session.py) lives as long as the loop: ``run`` destroys it when the loop
+returns or raises, ``setup`` and ``teardown`` destroy one left in the
+process, and a restart starts a new one, on a new address, with the new
+group of workers (a killed worker's group ends with its process).
 """
 
 from __future__ import annotations
@@ -47,7 +53,9 @@ class TrainWorker:
                                    experiment_name, latest_checkpoint,
                                    mesh_axes, ingest_spec=ingest_spec,
                                    run_id=run_id, node_id=node_id,
-                                   use_gpu=use_gpu)
+                                   use_gpu=use_gpu,
+                                   collective_group=group_name)
+        ctx.close_process_group()       # one left by this process's last
         session.set_context(ctx)
         self._ctx = ctx
         # Host-plane communicator: barriers, coordinator-address exchange
@@ -74,6 +82,7 @@ class TrainWorker:
             # drain buffered step records before the actor can be torn
             # down — the run's tail must reach the GCS train manager
             self._ctx.close_telemetry()
+            self._ctx.close_process_group()
         return {"rank": self._ctx.rank, "status": "finished"}
 
     def drain_results(self) -> list[dict]:
@@ -89,6 +98,7 @@ class TrainWorker:
     def teardown(self):
         from ray_tpu_torch.util import collective
 
+        self._ctx.close_process_group()
         if self._ctx.world_size > 1:
             try:
                 collective.destroy_collective_group(self._group_name)

@@ -126,11 +126,12 @@ def test_remat_policies_keep_grads(policy, save_attn):
 
 
 def test_unported_features_raise():
-    """Ring and Ulysses attention need the multi-GPU slice. (LoRA and MoE
-    are ported: tests/test_torch_lora.py, tests/test_torch_moe.py.)"""
+    """Ring and Ulysses attention with no seq group raise a clear error, as
+    the reference's fail outside shard_map (inside a sharded step over a
+    seq axis they run: tests/test_torch_sp.py)."""
     for impl in ("ring", "ulysses"):
         _, tcfg = _cfgs(impl)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="needs a seq process group"):
             tllama.loss_fn(_torch_params(_cfgs("xla")[1]),
                            _torch_batch(_batch_np()), tcfg)
 

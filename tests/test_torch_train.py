@@ -187,8 +187,10 @@ def test_memory_snapshot_falls_back_to_host_rss_without_cuda():
 def test_get_device_follows_use_gpu_and_never_falls_back(tmp_path):
     ctx = TrainContext(0, 1, str(tmp_path), "x", None, use_gpu=False)
     assert ctx.get_device() == torch.device("cpu")
+    # a mesh over GPU workers needs each lease pinned to its own card
+    two = TrainContext(0, 2, str(tmp_path), "x", None, use_gpu=True)
     with pytest.raises(NotImplementedError, match="item 6"):
-        ctx.get_mesh()
+        two.get_mesh()
     gpu = TrainContext(0, 1, str(tmp_path), "x", None, use_gpu=True)
     if torch.cuda.is_available():
         assert gpu.get_device().type == "cuda"
@@ -380,19 +382,71 @@ def _mlp_loop(config):
 
 
 def test_torch_trainer_mlp_on_get_device(cluster, tmp_path):
-    """Twin of test_train.py::test_jax_trainer_ddp_mesh: the loop trains
-    on get_device() (the CPU when asked), get_mesh() names item 6, and the
-    fit ends with its last checkpoint."""
+    """The MLP loop trains on get_device() (the CPU when asked), a
+    one-worker get_mesh() builds its one-rank gloo mesh, and the fit ends
+    with its last checkpoint."""
     result = train.TorchTrainer(
         _mlp_loop, train_loop_config={"epochs": 3},
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False),
         run_config=_run(tmp_path, "mlp")).fit()
     assert result.error is None and result.metrics["epoch"] == 2
     assert result.metrics["device"] == "cpu"
-    assert "item 6" in result.metrics["mesh"]
+    assert result.metrics["mesh"] == "built"
     assert result.checkpoint is not None and result.checkpoint.exists()
     assert "checkpoint_" in result.checkpoint.path
     assert train.DataParallelTrainer is train.TorchTrainer
+
+
+def _mlp_mesh_loop(config):
+    """Twin body of test_train.py::_mlp_train_loop on a mesh: the MLP
+    step built over get_mesh() with the MLP's logical axes, batches
+    through shard_batch."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.mlp import MLPConfig, mlp_init, mlp_loss
+    from ray_tpu_torch.parallel.spmd import (adamw, build_train_step,
+                                             shard_batch)
+    from ray_tpu_torch.train.checkpoint import Checkpoint, save_pytree
+
+    ctx = train.get_context()
+    mesh = ctx.get_mesh()
+    cfg = MLPConfig(in_dim=16, hidden=(32,), n_classes=4)
+    params = mlp_init(cfg, device=ctx.get_device())
+    axes = [{"w": (None, None), "b": (None,)} for _ in params]
+    step, state = build_train_step(mlp_loss, adamw(1e-2), params, axes,
+                                   mesh)
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 16).astype("float32")
+    batch = shard_batch({"x": x, "y": (x.sum(-1) > 0).astype("int64") % 4},
+                        mesh)
+    for epoch in range(config["epochs"]):
+        for _ in range(5):
+            state, aux = step(state, batch)
+        with tempfile.TemporaryDirectory() as d:
+            save_pytree({"epoch": epoch}, d)
+            train.report({"loss": float(aux["loss"]), "epoch": epoch,
+                          "mesh": dict(zip(mesh.mesh_dim_names,
+                                           mesh.shape))},
+                         checkpoint=Checkpoint(d))
+
+
+def test_torch_trainer_ddp_mesh(cluster, tmp_path):
+    """Twin of test_train.py::test_jax_trainer_ddp_mesh: one worker,
+    ScalingConfig(mesh={"data": -1}) on the CPU, the loop's step sharded
+    over get_mesh(); the fit ends at epoch 2 with its last checkpoint."""
+    result = train.TorchTrainer(
+        _mlp_mesh_loop, train_loop_config={"epochs": 3},
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False,
+                                           mesh={"data": -1}),
+        run_config=_run(tmp_path, "mlp_ddp")).fit()
+    assert result.error is None
+    assert result.metrics is not None and result.metrics["epoch"] == 2
+    assert result.metrics["mesh"] == {"data": 1}
+    assert result.checkpoint is not None and result.checkpoint.exists()
+    assert "checkpoint_" in result.checkpoint.path
 
 
 def _gpu_loop(config):
@@ -466,8 +520,8 @@ def _crash_batch_fn(marker, at, hard):
 
 
 def _logged_lora_loop(config):
-    """lora_finetune_loop with every train.report's metrics appended to
-    config["log"] (a crashed attempt's reports too)."""
+    """lora_finetune_loop with every train.report's metrics of rank 0
+    appended to config["log"] (a crashed attempt's reports too)."""
     import json
 
     from ray_tpu_torch import train
@@ -480,19 +534,26 @@ def _logged_lora_loop(config):
             f.write(json.dumps(metrics) + "\n")
         real(metrics, checkpoint)
 
-    train.report = report
+    ctx = train.get_context()
+    if ctx.get_world_size() > 1:
+        import torch
+
+        torch.set_num_threads(1)     # several ranks share the test's cores
+    if ctx.get_world_rank() == 0:
+        train.report = report
     try:
         return lora_finetune_loop(config)
     finally:
         train.report = real
 
 
-def _lora_fit(tmp_path, name, extra, max_failures=0):
+def _lora_fit(tmp_path, name, extra, max_failures=0, scaling=None):
     log = str(tmp_path / f"{name}.jsonl")
     result = train.TorchTrainer(
         _logged_lora_loop,
         train_loop_config={**_LORA_CFG, "log": log, **extra},
-        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False),
+        scaling_config=scaling or train.ScalingConfig(num_workers=1,
+                                                      use_gpu=False),
         run_config=train.RunConfig(
             name=name, storage_path=str(tmp_path),
             failure_config=train.FailureConfig(
@@ -588,3 +649,75 @@ def test_lora_fit_with_a_crash_matches_ray_tpu(cluster, tmp_path):
         ref = want[r["step"] - 1]
         assert abs(r["loss"] - ref) <= LOSS_RTOL * abs(ref), (r, ref)
     assert want[-1] < want[0]
+
+
+def _parity_inputs():
+    """ray_tpu's debug base weights and the adapters lora_finetune_loop
+    draws (init_lora_params(cfg, lcfg, seed + 1)), as numpy."""
+    jcfg = jllama.config_for("debug", dtype=jnp.float32)
+    base = jax.tree.map(np.asarray,
+                        jllama.init_params(jcfg, jax.random.PRNGKey(0)))
+    tcfg = tllama.config_for("debug", dtype=torch.float32)
+    adapters = params_to_numpy(tlora.init_lora_params(
+        tcfg, tlora.LoraConfig(rank=4, alpha=tcfg.lora_alpha),
+        _LORA_CFG["seed"] + 1, device="cpu"))
+    return base, adapters
+
+
+def _mesh_fit(tmp_path, name, scaling):
+    from ray_tpu_torch.models.convert import params_from_numpy
+
+    base, adapters = _parity_inputs()
+    result, reports = _lora_fit(tmp_path, name, {
+        "model_overrides": _f32_overrides(),
+        "init_params_fn": lambda cfg: params_from_numpy(base, device="cpu",
+                                                        cfg=cfg),
+        "batch_fn": _numpy_batch}, scaling=scaling)
+    assert result.error is None and result.metrics["step"] == 20
+    want = _reference_losses(base, adapters, _LORA_CFG["steps"],
+                             _LORA_CFG["lr"])
+    assert [r["step"] for r in reports] == [5, 10, 15, 20]
+    for r in reports:
+        ref = want[r["step"] - 1]
+        assert abs(r["loss"] - ref) <= LOSS_RTOL * abs(ref), (r, ref)
+    assert 0 < result.metrics["loss"] < result.metrics["first_loss"]
+    return result
+
+
+def test_lora_finetune_on_a_mesh_torch(cluster, tmp_path):
+    """Twin of test_train.py::test_lora_finetune: the reference lays a
+    dp x fsdp x tensor mesh over one worker's 8 CPU devices; the port lays
+    fsdp 2 x tensor 2 over 4 CPU workers, one rank each. Every report
+    equals ray_tpu's train step on the same base, adapters and global
+    batches to LOSS_RTOL, the loss falls, and each rank checkpoints its
+    own shards of the adapters (A's embed dim over fsdp, B's heads over
+    tensor) with its optimizer state."""
+    result = _mesh_fit(tmp_path, "lora_mesh", train.ScalingConfig(
+        num_workers=4, use_gpu=False, mesh={"fsdp": 2, "tensor": 2}))
+    for rank in range(4):
+        ckpt_dir = result.checkpoint.subdir(f"rank_{rank}").path
+        ckpt = tckpt.load_pytree(ckpt_dir)
+        assert int(ckpt["step"]) == 20
+        layers = ckpt["lora"]["layers"]
+        assert layers["wq_a"].shape == (2, 32, 4)      # [L, d/fsdp, r]
+        assert layers["wq_b"].shape == (2, 4, 32)      # [L, r, h*hd/tensor]
+        assert layers["wo_a"].shape == (2, 32, 4)      # heads over tensor
+        assert layers["wo_b"].shape == (2, 4, 32)      # embed over fsdp
+        assert os.path.exists(os.path.join(ckpt_dir, "opt_state.pkl"))
+
+
+def test_two_worker_data_parallel_ends_with_equal_params(cluster,
+                                                         tmp_path):
+    """Two CPU workers and no mesh given: pure data parallelism over
+    get_mesh()'s {"data": -1}. Every report equals ray_tpu's step on the
+    global batches, and both ranks end with the same adapters, bit for
+    bit."""
+    result = _mesh_fit(tmp_path, "lora_dp", train.ScalingConfig(
+        num_workers=2, use_gpu=False))
+    ranks = [tckpt.load_pytree(result.checkpoint.subdir(f"rank_{r}").path)
+             for r in range(2)]
+    for name, leaf in ranks[0]["lora"]["layers"].items():
+        assert leaf.shape[1:] == ((64, 4) if name.endswith("_a")
+                                  else (4, 64 if name[:2] in ("wq", "wo")
+                                        else 32)), name
+        assert np.array_equal(leaf, ranks[1]["lora"]["layers"][name]), name

@@ -153,7 +153,8 @@ def test_positional_order_is_the_references():
     (loss_fn, optimizer, params, logical_axes, mesh, ...), on the MLP with
     its list of layers: the logical axes are taken and ignored on one
     device, and the trajectory matches the reference's on a 1-device mesh
-    at 1e-5 relative. A mesh or a sequence-sharded batch raises."""
+    at 1e-5 relative. A sequence-sharded batch without a mesh raises (the
+    sharded step over a mesh: tests/test_torch_spmd_mesh.py)."""
     from ray_tpu.models import mlp as jmlp
     from ray_tpu_torch.models import mlp as tmlp
 
@@ -180,8 +181,6 @@ def test_positional_order_is_the_references():
         jlosses.append(float(jaux["loss"]))
         losses.append(float(aux["loss"]))
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_train_step(tmlp.mlp_loss, adamw(1e-2), tparams, axes, mesh)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         build_train_step(tmlp.mlp_loss, adamw(1e-2), tparams, axes, None,
                          None, True, device="cpu")

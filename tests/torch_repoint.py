@@ -162,11 +162,11 @@ DESELECT = {
             _JAX_BODY + " (jnp leaves)", None,
             _TWINS + "test_save_load_pytree_torch"),
         "test_jax_trainer_ddp_mesh": Deselect(
-            _JAX_BODY + " (an optax MLP step over a mesh)", "6",
-            _TWINS + "test_torch_trainer_mlp_on_get_device"),
+            _JAX_BODY + " (an optax MLP step over a mesh)", None,
+            _TWINS + "test_torch_trainer_ddp_mesh"),
         "test_lora_finetune": Deselect(
             _JAX_BODY + " (the JAX recipe on a dp x fsdp x tensor mesh)",
-            "6", _TWINS + "test_lora_finetune_torch"),
+            None, _TWINS + "test_lora_finetune_on_a_mesh_torch"),
         "test_lora_resume_restores_exact_trajectory": Deselect(
             _JAX_BODY + " (jax.random batches in its batch_fn)", None,
             _TWINS + "test_lora_resume_restores_exact_trajectory_torch"),

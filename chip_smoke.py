@@ -65,6 +65,20 @@ caught, so any failure exits non-zero):
    L2 1e-4, with the off-by-one control); MultiplexedLoraService over 3
    adapter ids with 2 resident, sharing the base's storage; the decode
    step's time with and without an adapter.
+11a. pin_cards, dag_collective_card, right after runtime_cluster on its
+   cluster: per-lease card pinning. A CPU-only task's CUDA_VISIBLE_DEVICES
+   stays the node's own (unpinned); a num_gpus=1 task reads the card's
+   index there, torch.cuda.device_count() == 1, allocates on it, and the
+   GPU reads 0 free while it runs (1 after); two num_gpus=0.5 actors read
+   the same index and hold 64 MiB each at once. Then those two actors
+   start a 2-rank gloo group of their own and a compiled DAG binds them,
+   in the reverse of their group ranks, to allreduce (sum) and allgather
+   over 64 MiB f32 CUDA tensors: each actor's in-mesh counters show the
+   in-mesh path ran, the results stay on the card, and they equal the
+   out-of-band tier's on the same values bit for bit (the gather in DAG
+   order); ms per tick of each tier. A tensor-parallel engine, a learner
+   over several ranks and an NCCL mesh over several workers run on one
+   card only as one rank (NCCL refuses two ranks on one card).
 11. runtime_cluster, runtime_serve_410m, runtime_device_objects,
    serve_app_410m, runtime_train_410m: the port's runtime (rt.init() with
    no arguments, which autodetects the GPU) runs the 410m engine in an
@@ -150,7 +164,7 @@ caught, so any failure exits non-zero):
    after; the build's wall s and exchange stats, data_wait ms per step
    beside the step ms and tokens/s. tune_410m: Tuner(lora_finetune_loop)
    at the 410m's full width (rank 16 on wq wk wv wo), a grid of 4 learning
-   rates under ASHA (max_t 6, grace 2) on the loss, each trial a
+   rates under ASHA (max_t 4, grace 2) on the loss, each trial a
    TrainWorker leased half the GPU: 48/24/24 launches a step in every
    trial, two trials at once while the GPU reads 0 free (1 after), at
    least one trial stopped before max_t, the best full-length trial's
@@ -250,6 +264,11 @@ launcher_410m alone.
 
 runs device, build, train_410m (for its losses and step time),
 mesh_train_410m and ring_410m alone.
+
+    python3 chip_smoke.py --pin
+
+runs device, build, then runtime_cluster, pin_cards and
+dag_collective_card alone, on a cluster of their own.
 
     python3 chip_smoke.py --gloo-cuda
 
@@ -2220,6 +2239,240 @@ def phase_runtime_cluster() -> dict:
     return res
 
 
+class CardHolder:
+    """An actor leased part of the card: reads its process's view of the
+    cards, holds memory there, and joins a 2-rank gloo group of its own
+    making for the in-mesh DAG collective (dag_collective_card)."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+        self.held = None
+        self.kept: dict = {}
+
+    def view(self, mib: int = 0) -> dict:
+        import torch
+
+        from ray_tpu_torch._internal.accelerators import _lease_gpu_ids
+
+        if mib:
+            self.held = torch.ones(mib << 18, device="cuda")  # f32
+            torch.cuda.synchronize()
+        return {"cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "lease_gpu_ids": list(_lease_gpu_ids()),
+                "device_count": torch.cuda.device_count(),
+                "allocated_mib": torch.cuda.memory_allocated() / 2 ** 20,
+                "device": str(self.held.device) if self.held is not None
+                else None, "pid": os.getpid()}
+
+    def join(self, address: str) -> int:
+        import datetime
+
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method=address, rank=self.rank,
+                                world_size=2,
+                                timeout=datetime.timedelta(seconds=120))
+        return dist.get_rank()
+
+    def leave(self) -> bool:
+        import torch.distributed as dist
+
+        self.kept = {}
+        self.held = None
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return True
+
+    def _values(self, seed: int, rank: int | None = None):
+        """Group rank `rank`'s value of tick `seed` (this actor's by
+        default)."""
+        import torch
+
+        rank = self.rank if rank is None else rank
+        gen = torch.Generator(device="cuda").manual_seed(seed * 2 + rank)
+        return torch.randn(DAG_COLLECTIVE_ELEMS, generator=gen,
+                           device="cuda")
+
+    def value(self, seed: int):
+        return self._values(seed)
+
+    def host_value(self, seed: int):
+        return self._values(seed).cpu().numpy()
+
+    def keep(self, tier: str, reduced, gathered) -> dict:
+        """Hold a tick's results; -> where they lie."""
+        import torch
+
+        def where(x):
+            return str(x.device) if isinstance(x, torch.Tensor) else "host"
+
+        self.kept[tier] = (reduced, gathered)
+        return {"reduced": where(reduced),
+                "gathered": [where(g) for g in gathered]}
+
+    def compare(self, seed: int) -> dict:
+        """The in-mesh results against the out-of-band ones, bit for bit;
+        the gather in DAG order (rank 1's value first); the in-mesh calls
+        this process made."""
+        import numpy as np
+
+        from ray_tpu_torch.dag.collective import in_mesh_calls
+
+        (mesh_sum, mesh_all), (band_sum, band_all) = (self.kept["mesh"],
+                                                      self.kept["band"])
+        host = [np.asarray(g) for g in band_all]
+        return {"sum_bit_equal": mesh_sum.cpu().numpy().tobytes()
+                == np.asarray(band_sum).tobytes(),
+                "gather_bit_equal": [m.cpu().numpy().tobytes()
+                                     == h.tobytes()
+                                     for m, h in zip(mesh_all, host)],
+                "gather_in_dag_order": [h.tobytes() for h in host]
+                == [self._values(seed, r).cpu().numpy().tobytes()
+                    for r in (1, 0)],
+                "in_mesh_calls": dict(in_mesh_calls)}
+
+
+def phase_pin_cards() -> list:
+    """Per-lease card pinning on the runtime cluster: a CPU-only task keeps
+    the node's view; a num_gpus=1 task sees the card alone and allocates
+    there while the GPU reads 0 free (1 after); two num_gpus=0.5 actors
+    see the same card and hold memory at once. Returns the two actors,
+    for dag_collective_card."""
+    import ray_tpu_torch as rt
+
+    node_view = os.environ.get("CUDA_VISIBLE_DEVICES")
+    card = (node_view or "0").split(",")[0].strip()
+    t0 = time.perf_counter()
+
+    @rt.remote
+    def cpu_view():
+        import sys
+
+        return {"cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "torch_imported": "torch" in sys.modules}
+
+    @rt.remote(num_gpus=1)
+    def gpu_view(hold_s: float):
+        import torch
+
+        from ray_tpu_torch._internal.accelerators import _lease_gpu_ids
+
+        x = torch.ones(1 << 20, device="cuda")
+        torch.cuda.synchronize()
+        time.sleep(hold_s)
+        return {"cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "lease_gpu_ids": list(_lease_gpu_ids()),
+                "device_count": torch.cuda.device_count(),
+                "device": str(x.device), "sum": float(x.sum()),
+                "name": torch.cuda.get_device_name(0)}
+
+    cpu = rt.get(cpu_view.remote(), timeout=120)
+    ref = gpu_view.remote(3.0)
+    free_while = _gpus_free(rt, 0.0, timeout_s=30.0)
+    gpu = rt.get(ref, timeout=300)
+    free_after = _gpus_free(rt, 1.0)
+    holder = rt.remote(num_gpus=0.5)(CardHolder)
+    halves = [holder.remote(r) for r in range(2)]
+    half = rt.get([h.view.remote(64) for h in halves], timeout=300)
+    half_free = _gpus_free(rt, 0.0, timeout_s=30.0)
+    res = {"node_view": node_view, "card": card, "cpu_task": cpu,
+           "gpu_task": gpu, "gpu_free_while_leased": free_while,
+           "gpu_free_after": free_after, "half_actors": half,
+           "gpu_free_with_halves": half_free,
+           "wall_s": time.perf_counter() - t0}
+    ok = (cpu["cuda_visible_devices"] == node_view
+          and not cpu["torch_imported"]
+          and gpu["cuda_visible_devices"] == card
+          and gpu["lease_gpu_ids"] == [card]
+          and gpu["device_count"] == 1 and gpu["device"] == "cuda:0"
+          and gpu["sum"] == float(1 << 20)
+          and free_while == 0.0 and free_after == 1.0
+          and all(h["cuda_visible_devices"] == card
+                  and h["device_count"] == 1 and h["device"] == "cuda:0"
+                  and h["allocated_mib"] >= 64 for h in half)
+          and half[0]["pid"] != half[1]["pid"] and half_free == 0.0)
+    emit("pin_cards", **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"pin_cards failed its checks: {res}")
+    return halves
+
+
+# 64 MiB of f32 a participant in dag_collective_card
+DAG_COLLECTIVE_ELEMS = 16 << 20
+
+
+def phase_dag_collective_card(halves: list, ticks: int = 3) -> dict:
+    """The in-mesh DAG collective between two processes on the card: the
+    two half-card actors of pin_cards start a 2-rank gloo group (their own
+    code's group: NCCL refuses two ranks on one card, and gloo takes CUDA
+    tensors in all_reduce and all_gather), and a compiled DAG binds them
+    in the reverse of their group ranks to allreduce and allgather 64 MiB
+    f32 CUDA tensors. The in-mesh path must run (each actor's counters),
+    the results stay on the card, and they equal the out-of-band tier's
+    (the same values as host arrays) bit for bit; ms per tick of each."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, collective
+    from ray_tpu_torch.parallel.mesh import free_address
+
+    t0 = time.perf_counter()
+    address = free_address()
+    assert rt.get([h.join.remote(address) for h in halves],
+                  timeout=180) == [0, 1]
+    order = [halves[1], halves[0]]           # DAG rank i = group rank 1 - i
+
+    def compile_tier(tier: str, method: str):
+        with InputNode() as inp:
+            vals = [getattr(h, method).bind(inp) for h in order]
+            red = collective.allreduce.bind(vals, op="sum",
+                                            group_name=f"card-{tier}")
+            gat = collective.allgather.bind(
+                [getattr(h, method).bind(inp) for h in order],
+                group_name=f"card-{tier}")
+            outs = [h.keep.bind(tier, r, g)
+                    for h, r, g in zip(order, red, gat)]
+            return MultiOutputNode(outs).experimental_compile(channels=True)
+
+    timings, placed = {}, {}
+    for tier, method in (("mesh", "value"), ("band", "host_value")):
+        dag = compile_tier(tier, method)
+        try:
+            placed[tier] = dag.execute(0).get(timeout=300)   # warm-up
+            t = time.perf_counter()
+            for i in range(ticks):
+                placed[tier] = dag.execute(i + 1).get(timeout=300)
+            timings[tier] = (time.perf_counter() - t) / ticks * 1e3
+        finally:
+            dag.teardown()
+    seed = ticks                             # the last tick's values
+    checks = rt.get([h.compare.remote(seed) for h in halves], timeout=300)
+    rt.get([h.leave.remote() for h in halves], timeout=120)
+    for h in halves:
+        rt.kill(h)
+    free_after = _gpus_free(rt, 1.0)
+    res = {"bytes_per_rank": DAG_COLLECTIVE_ELEMS * 4,
+           "mesh_tick_ms": timings["mesh"], "band_tick_ms": timings["band"],
+           "placed": placed, "checks": checks, "gpu_free_after": free_after,
+           "wall_s": time.perf_counter() - t0}
+    ok = (all(c["sum_bit_equal"] and all(c["gather_bit_equal"])
+              and c["gather_in_dag_order"]
+              and c["in_mesh_calls"]["allreduce"] == ticks + 1
+              and c["in_mesh_calls"]["allgather"] == ticks + 1
+              for c in checks)
+          and all(p["reduced"] == "cuda:0"
+                  and p["gathered"] == ["cuda:0", "cuda:0"]
+                  for p in placed["mesh"])
+          and all(p["reduced"] == "host" for p in placed["band"])
+          and free_after == 1.0)
+    emit("dag_collective_card", **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"dag_collective_card failed its checks: "
+                             f"{res}")
+    return res
+
+
 class LlamaHost:
     """An async actor hosting the port's LlamaService("410m") on the card,
     with the engine of the serve phases; streams token ids. With `f32` the
@@ -4007,7 +4260,7 @@ BYTE_OFFSET, EOS_ID = 3, 2     # ids 0-2 reserved (pad, bos, eos)
 # higher loss at ASHA's rung (step 2: one update on batch 0, the loss on
 # batch 1), so the second pair meets better peers there
 TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
-TUNE_MAX_T, TUNE_GRACE = 6, 2
+TUNE_MAX_T, TUNE_GRACE = 4, 2
 TUNE_GPU_SHARE = 0.5
 
 
@@ -4328,7 +4581,7 @@ def _ran_together(a: dict, b: dict) -> bool:
 def phase_tune_410m(lora_step_ms: float) -> dict:
     """Tuner(lora_finetune_loop) at the 410m's full width (rank 16 on wq
     wk wv wo, frozen base, b8 s2048, bf16, remat "dots", flash), a grid of
-    4 learning rates under ASHAScheduler(max_t=6, grace_period=2) on the
+    4 learning rates under ASHAScheduler(max_t=4, grace_period=2) on the
     loss, each trial a TrainWorker leased {"GPU": 0.5}, so two trials
     share the card. Holds: every trial's reports count 48/24/24 flash
     launches a step; two trials ran at once while the GPU read 0 free,
@@ -5150,6 +5403,7 @@ def phase_runtime(reference_losses: list, lora_step_ms: float,
     torch.cuda.empty_cache()       # the card's memory for the workers
     try:
         phase_runtime_cluster()
+        phase_dag_collective_card(phase_pin_cards())
         actor, serve_run = phase_runtime_serve_410m()
         objects = phase_runtime_device_objects(actor)
         # the actor holds the node's one GPU until it dies: the Serve
@@ -5202,7 +5456,21 @@ PHASE_GROUPS = {
         r["full"]["losses"][0], r["full"]["step_ms"])),
     "--mesh": (("full",), lambda r, seed: (
         phase_mesh_train_410m(r["full"], STEPS_410M), phase_ring_410m())),
+    "--pin": ((), lambda r, seed: _on_runtime_cluster(lambda: (
+        phase_dag_collective_card(phase_pin_cards())))),
 }
+
+
+def _on_runtime_cluster(run):
+    """phase_runtime_cluster's cluster (rt.init() autodetecting the
+    card), then `run` on it, shut down on the way out."""
+    import ray_tpu_torch as rt
+
+    try:
+        phase_runtime_cluster()
+        return run()
+    finally:
+        rt.shutdown()
 
 
 def run_group(flag: str, seed: int):

@@ -104,11 +104,6 @@ from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: F401
 from ray_tpu_torch.core.runtime import (init, is_initialized,  # noqa: F401
                                         shutdown)
 
-# subpackages of the reference that the port does not hold yet, by the
-# ROADMAP.md item that brings them
-_NOT_PORTED = {"collective": "6"}
-
-
 def __getattr__(name):
     # Lazy submodules: keep `import ray_tpu_torch` free of torch.
     if name == "resolve_device":
@@ -116,12 +111,11 @@ def __getattr__(name):
 
         return resolve_device
     if name in ("util", "serve", "models", "ops", "parallel", "experimental",
-                "train", "data", "tune", "dag", "rl", "state_api"):
+                "train", "data", "tune", "dag", "rl", "state_api",
+                "collective"):
+        # "collective" names no module, in the reference either
+        # (ray_tpu.collective fails with ModuleNotFoundError)
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.{name} is not ported yet (ROADMAP.md item "
-            f"{_NOT_PORTED[name]})")
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -11,6 +11,12 @@ advertises:
 Counting never imports torch: the node manager and the driver's init stay
 light, and asking CUDA would create a context in a process that may never
 run a kernel.
+
+Each GPU lease is pinned to cards of its own (core/node_manager.py): the
+worker serving it sets CUDA_VISIBLE_DEVICES to them, so its process sees
+them as cuda:0, cuda:1, ... ``_lease_gpu_ids`` reads them (the role of
+Ray's ``ray.get_gpu_ids()``, which the reference has no counterpart of, so
+it stays private).
 """
 
 from __future__ import annotations
@@ -116,3 +122,25 @@ def detect_gpus(env: Optional[dict] = None,
     first = picked[0]
     return GpuInfo(count=len(picked),
                    name=cards[first if first is not None else 0])
+
+
+def _lease_gpu_ids() -> tuple[str, ...]:
+    """The cards of the GPU lease this worker runs now (an actor's for its
+    life, a task's while it runs), as CUDA_VISIBLE_DEVICES names them; ()
+    outside a worker or for a lease without a GPU."""
+    from ray_tpu_torch.core.object_ref import get_core_worker
+
+    try:
+        cw = get_core_worker()
+    except Exception:
+        return ()
+    return tuple(getattr(cw, "leased_gpu_ids", ()) or ())
+
+
+def _in_lease_without_gpu() -> bool:
+    """Whether this process is a runtime worker whose lease holds no GPU:
+    it still sees every card of the node, and none of them is its own."""
+    from ray_tpu_torch.core.object_ref import get_core_worker
+
+    cw = get_core_worker()
+    return getattr(cw, "mode", None) == "worker" and not _lease_gpu_ids()

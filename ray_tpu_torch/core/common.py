@@ -123,6 +123,11 @@ class TaskSpec:
     # riding every spec; function_blob then only carries the piggybacked
     # first-push copy (None on all later pushes).
     function_id: str | None = None
+    # The cards of the lease this spec runs on, as CUDA_VISIBLE_DEVICES
+    # names them (None: a lease without a GPU). Set by the node manager on
+    # an actor's creation spec, and by the owner from the lease token on
+    # every normal task it pushes.
+    gpu_ids: tuple | None = None
 
     def __reduce__(self):
         # a spec crosses the wire on EVERY submit: a positional tuple
@@ -135,7 +140,21 @@ class TaskSpec:
             self.attempt, self.actor_id, self.method_name, self.seq_no,
             self.is_actor_creation, self.actor_options,
             self.scheduling_strategy, self.runtime_env,
-            self.tensor_transport, self.trace_ctx, self.function_id))
+            self.tensor_transport, self.trace_ctx, self.function_id,
+            self.gpu_ids))
+
+
+def lease_token(worker_hex: str, cards: tuple | None) -> str:
+    """A lease's token: the worker it names and the cards that worker must
+    see (``"<worker id>:<card>,<card>"``; the id alone for a lease without
+    a GPU)."""
+    return worker_hex + (":" + ",".join(cards) if cards else "")
+
+
+def parse_lease_token(token: str) -> tuple[str, tuple | None]:
+    """(worker id hex, the cards or None) of a ``lease_token``."""
+    worker_hex, _, cards = token.partition(":")
+    return worker_hex, (tuple(cards.split(",")) if cards else None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,13 +44,13 @@ from ray_tpu_torch.core.common import (ActorDiedError, ActorState, Address,
                                        ObjectLostError, ObjectMeta,
                                        PlacementGroupSchedulingStrategy,
                                        TaskCancelledError, TaskError, TaskSpec,
-                                       WorkerCrashedError, WorkerInfo)
+                                       WorkerCrashedError, WorkerInfo,
+                                       parse_lease_token)
 from ray_tpu_torch.core.gcs import CH_ACTOR, CH_NODE, CH_OBJECTS, GcsClient
 from ray_tpu_torch.core.object_ref import ObjectRef, set_core_worker
 from ray_tpu_torch.core.device_objects import (DeviceObjectStore,
                                                deserialize_array, gpu_lease,
-                                               is_device_value,
-                                               serialize_array)
+                                               is_device_value)
 from ray_tpu_torch.core.object_store import MemoryStore, make_shm_store
 from ray_tpu_torch.core.reference_counter import ReferenceCounter
 
@@ -435,8 +435,11 @@ class CoreWorker:
         self.root_task_id = TaskID.for_normal_task(job_id)
         self._exec_ctx = _ExecutionContext()
         # GPUs of this worker's lease: an actor's for its lifetime, a
-        # normal task's while it runs (device_objects.rebuild_device)
+        # normal task's while it runs (device_objects.rebuild_device),
+        # and the cards they are (CUDA_VISIBLE_DEVICES names; the private
+        # accelerators.lease_gpu_ids reads them)
         self.leased_gpus = 0.0
+        self.leased_gpu_ids: tuple = ()
         self._put_index = 0
         self._put_lock = threading.Lock()
         self._conns: dict[str, Connection] = {}
@@ -1590,11 +1593,11 @@ class CoreWorker:
     async def rpc_fetch_device_object(self, conn, oid: ObjectID):
         """Serve a device object we hold as raw host bytes (+dtype/shape).
         Runs the gather on an executor thread — device_get can block."""
-        value = self.device_store.get(oid)
-        if value is None:
+        if not self.device_store.contains(oid):
             return None
         loop = asyncio.get_running_loop()
-        return await loop.run_in_executor(None, serialize_array, value)
+        return await loop.run_in_executor(None, self.device_store.payload,
+                                          oid)
 
     def rpc_free_device_object(self, conn, oid: ObjectID):
         self.device_store.delete(oid)
@@ -1940,6 +1943,15 @@ class CoreWorker:
             self.fn_cache.stage_blob(spec.function_id, spec.function_blob)
         return self.fn_cache.resolve(spec.function_id, spec.job_id.hex(),
                                      self._fetch_code_blob)
+
+    def rpc_cuda_initialized(self, conn, arg=None) -> bool:
+        """Whether this process may have initialised CUDA: the node manager
+        asks before it pins an idle worker to other cards (CUDA reads
+        CUDA_VISIBLE_DEVICES once a process). Any process that imported
+        torch counts: ``torch.cuda.is_available()`` and
+        ``device_count()`` start the driver, which reads the variable
+        then, while ``torch.cuda.is_initialized()`` stays False."""
+        return "torch" in sys.modules
 
     def rpc_evict_job_code(self, conn, job_hex: str):
         """Job-scoped cache eviction: pooled workers outlive jobs."""
@@ -2303,6 +2315,7 @@ class CoreWorker:
             conn = await self._conn_to(winfo.address)
             self._attach_code_blob_set(
                 spec, conn.__dict__.setdefault("_fn_pushed", set()))
+            spec.gpu_ids = parse_lease_token(token)[1]
             reply = await conn.call("push_task", spec,
                                     timeout=_TASK_PUSH_TIMEOUT)
         except (ConnectionLost, RpcError, OSError) as e:
@@ -2383,6 +2396,7 @@ class CoreWorker:
                                      getattr(winfo, "direct_port", 0))
         if dc is None:
             return False
+        spec.gpu_ids = parse_lease_token(token)[1]
         key = self._lease_key(spec.resources, strat)
         if chain is None:
             chain = _LeaseChain()
@@ -3219,6 +3233,7 @@ class CoreWorker:
         self._exec_ctx.job_id = spec.job_id
         if self.actor_id is None:
             self.leased_gpus = gpu_lease(spec.resources)
+            self._pin_cards(spec.gpu_ids)
         restore_env = None
         held_args: list = []
         try:
@@ -3243,8 +3258,19 @@ class CoreWorker:
                     pass
             if self.actor_id is None:
                 self.leased_gpus = 0.0
+                self.leased_gpu_ids = ()
             self._exec_ctx.task_id = None
             self._exec_ctx.job_id = None
+
+    def _pin_cards(self, gpu_ids) -> None:
+        """Make this process see the lease's cards before the body runs:
+        CUDA_VISIBLE_DEVICES, which CUDA reads when the process first
+        initialises it (the node manager never hands a worker that has
+        done so under other cards a lease of these). A lease without a GPU
+        leaves the view as it is: every card of the node."""
+        self.leased_gpu_ids = tuple(gpu_ids or ())
+        if gpu_ids:
+            os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(gpu_ids)
 
     def _resolve_args(self, args, hold: list | None = None):
         """Resolve RefArg placeholders to values. `hold` (a list the
@@ -3345,6 +3371,7 @@ class CoreWorker:
         held_args: list = []
         # before the constructor runs: it may read a device edge or object
         self.leased_gpus = gpu_lease(spec.resources)
+        self._pin_cards(spec.gpu_ids)
         try:
             self._apply_runtime_env(spec)
             cls = self._resolve_function(spec)

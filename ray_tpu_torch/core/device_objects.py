@@ -9,8 +9,8 @@ worker-to-worker without a host pickle bounce. Here that is (a) zero-copy
 handoff within a process, and (b) a host-staged transfer between worker
 processes (same host or across hosts) that never pickles the device
 buffer — raw bytes + dtype/shape metadata; compiled-DAG device edges
-(dag/device_channel.py) ride the same framing. A card-to-card path (NCCL)
-is ROADMAP.md item 6.
+(dag/device_channel.py) ride the same framing. Every cross-process value is
+host-staged, as in the reference (ray_tpu/core/device_objects.py:12-19).
 
 The holder of a device object is a WORKER PROCESS (not a node). `rt.get`
 in the holder returns the same torch.Tensor object; `rt.get` elsewhere
@@ -51,18 +51,43 @@ def dtype_name(value) -> str:
     return str(value.dtype)
 
 
+def _dtensor_type():
+    """``torch.distributed.tensor.DTensor`` when the process already
+    imported it (a process that never did holds none), else None."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return getattr(mod, "DTensor", None)
+
+
+def is_sharded(value) -> bool:
+    """True for a DTensor that some mesh dim shards (or keeps partial):
+    its whole value exists only after a gather over the mesh."""
+    dtensor = _dtensor_type()
+    if dtensor is None or not isinstance(value, dtensor):
+        return False
+    return not all(p.is_replicate() for p in value.placements)
+
+
 def host_shard_view(value):
     """torch.Tensor -> one host numpy view of its payload (counterpart of
-    the TPU build's single-shard view: a tensor lives on one device, so it
-    is one shard, and nothing is gathered). A CUDA tensor is copied to
-    host memory once; a contiguous CPU tensor is viewed in place. bf16,
-    which numpy lacks, travels as its bits (a uint16 view); `dtype_name`
-    names the dtype to rebuild. A numpy array passes through."""
+    the reference's single-shard view). A plain tensor lives on one
+    device, so it is one shard, and nothing is gathered: a CUDA tensor is
+    copied to host memory once; a contiguous CPU tensor is viewed in
+    place. A ``DTensor`` is gathered whole (``full_tensor()``, a
+    collective over its mesh, so every rank stages it, as every rank runs
+    the same program), except one replicated on every mesh dim, which
+    ships its local tensor with no gather (the reference's one-shard
+    shortcut, ray_tpu/core/device_objects.py:40-62). bf16, which numpy
+    lacks, travels as its bits (a uint16 view); `dtype_name` names the
+    dtype to rebuild. A numpy array passes through."""
     import numpy as np
 
     torch = sys.modules.get("torch")
     if torch is None or not isinstance(value, torch.Tensor):
         return np.asarray(value)
+    dtensor = _dtensor_type()
+    if dtensor is not None and isinstance(value, dtensor):
+        value = (value.full_tensor() if is_sharded(value)
+                 else value.to_local())
     host = value.detach().to("cpu").contiguous()
     if host.dtype == torch.bfloat16:
         host = host.view(torch.uint16)
@@ -91,9 +116,10 @@ def rebuild_device() -> str:
     ``dag.collective.client_fingerprint`` follows) or a worker whose lease
     holds a GPU (``CoreWorker.leased_gpus``, set from the actor's or the
     running task's resource demand); "cpu" anywhere else, without creating
-    a CUDA context. No card is pinned per lease, so on a host with a card
-    every process sees it: a CPU-leased actor that reads a device edge
-    must not build a context there."""
+    a CUDA context. A GPU lease pins its worker to the lease's cards, so
+    "cuda" there is the lease's first card. A CPU-only lease pins nothing
+    and keeps the view of every card of the node: a CPU-leased actor that
+    reads a device edge must not build a context there."""
     import torch
 
     if torch.cuda.is_initialized():
@@ -142,11 +168,29 @@ class DeviceObjectStore:
 
     def __init__(self):
         self._objects: dict[ObjectID, Any] = {}
+        self._staged: dict[ObjectID, tuple] = {}
         self._lock = threading.Lock()
 
     def put(self, oid: ObjectID, value: Any):
+        """Hold `value`; a sharded DTensor is staged to host bytes now,
+        while every rank of its mesh runs the same put: a later fetch is
+        served by this rank alone, and the gather is a collective."""
+        staged = serialize_array(value) if is_sharded(value) else None
         with self._lock:
             self._objects[oid] = value
+            if staged is not None:
+                self._staged[oid] = staged
+
+    def payload(self, oid: ObjectID):
+        """(raw host bytes, dtype name, shape) of a held object, or None:
+        the bytes staged at put for a sharded DTensor, else a fresh
+        host copy."""
+        with self._lock:
+            value = self._objects.get(oid)
+            staged = self._staged.get(oid)
+        if value is None:
+            return None
+        return staged if staged is not None else serialize_array(value)
 
     def get(self, oid: ObjectID):
         with self._lock:
@@ -159,6 +203,7 @@ class DeviceObjectStore:
     def delete(self, oid: ObjectID):
         with self._lock:
             self._objects.pop(oid, None)
+            self._staged.pop(oid, None)
 
     def __len__(self) -> int:
         with self._lock:

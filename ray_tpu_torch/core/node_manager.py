@@ -11,6 +11,17 @@ node (its view of the cluster comes from GCS heartbeats), or queues the
 request until resources free up. The "GPU" resource counts the cards on
 this host (autodetected at init, _internal/accelerators.py); any other
 resource is custom.
+
+Card pinning: every card of the node has a fractional load. A lease of k
+whole GPUs takes k free cards, a fractional one packs onto one card, and a
+placement-group bundle takes its cards when it is reserved (the bundle's
+leases take theirs from those). The worker learns its cards with the grant
+(the lease token for a task, the spec for an actor) and sets
+CUDA_VISIBLE_DEVICES before it touches CUDA. CUDA reads that variable once
+a process, so a worker is reused for a GPU lease only when it already
+sees the lease's cards or has never imported torch (any torch.cuda call,
+``is_available()`` too, may have read the variable); a CPU-only lease
+takes a worker that sees every card of the node, as it did before pinning.
 """
 
 from __future__ import annotations
@@ -26,7 +37,9 @@ from ray_tpu_torch._internal.config import get_config
 from ray_tpu_torch._internal.ids import ActorID, NodeID, ObjectID, WorkerID
 from ray_tpu_torch._internal.logging_utils import setup_logger
 from ray_tpu_torch._internal.rpc import Connection, RawView, RpcServer, connect
-from ray_tpu_torch.core.common import Address, NodeInfo, TaskSpec, WorkerInfo
+from ray_tpu_torch.core.common import (Address, NodeInfo, TaskSpec,
+                                      WorkerInfo, lease_token,
+                                      parse_lease_token)
 from ray_tpu_torch.core.gcs_event_manager import (CH_EVENTS, make_event,
                                                   shape_key)
 from ray_tpu_torch.core.gcs_object_manager import CH_OBJECTS
@@ -35,9 +48,79 @@ from ray_tpu_torch.core.object_store import make_shm_store
 logger = setup_logger("node_manager")
 
 
+class _Cards:
+    """Cards of one resource key (the node's "GPU", or a reserved bundle's
+    "GPU_pg_<id>_<i>") by the names CUDA_VISIBLE_DEVICES gives them, each
+    with the share still free (1.0 for a whole card; a bundle holding half
+    a card frees 0.5 of it)."""
+
+    def __init__(self, ids, free=None):
+        self.ids = list(ids)
+        self.free = list(free) if free is not None else [1.0] * len(self.ids)
+
+    def take(self, amount: float) -> list[tuple[int, float]] | None:
+        """[(card, share), ...] for `amount` GPUs: its whole part as that
+        many wholly free cards, the rest packed onto the fitting card with
+        the least room (fractions share a card before they open another);
+        None when the cards cannot hold it."""
+        whole = int(amount + 1e-9)
+        frac = amount - whole
+        got = []
+        for i, f in enumerate(self.free):
+            if len(got) == whole:
+                break
+            if f >= 1.0 - 1e-9:
+                got.append((i, 1.0))
+        if len(got) < whole:
+            return None
+        if frac > 1e-9:
+            taken = {i for i, _ in got}
+            fits = [i for i, f in enumerate(self.free)
+                    if i not in taken and f >= frac - 1e-9]
+            if not fits:
+                return None
+            got.append((min(fits, key=lambda i: self.free[i]), frac))
+        for i, share in got:
+            self.free[i] -= share
+        return got
+
+    def give(self, got) -> None:
+        for i, share in got:
+            self.free[i] += share
+
+    def available(self) -> float:
+        """The GPU these cards still hold, as the node advertises it."""
+        return sum(self.free)
+
+    def names(self, got) -> tuple[str, ...]:
+        return tuple(self.ids[i] for i, _ in got)
+
+
+def _node_card_ids(count: float) -> list[str]:
+    """The CUDA_VISIBLE_DEVICES names of this node's `count` cards: the
+    entries of the node's own CUDA_VISIBLE_DEVICES when it has one (the
+    cards autodetect counted), else 0..count-1 (also for a count set by
+    hand)."""
+    n = int(count + 1e-9)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        ids = [e.strip() for e in visible.split(",") if e.strip()]
+        if len(ids) >= n:
+            return ids[:n]
+    return [str(i) for i in range(n)]
+
+
 class _Worker:
-    def __init__(self, proc: subprocess.Popen):
+    def __init__(self, proc: subprocess.Popen, view: tuple = ()):
         self.proc = proc
+        # the cards this process sees (CUDA_VISIBLE_DEVICES), as the node
+        # names them: every card of the node until a GPU lease pins it
+        self.view = view
+        # the cards of the current lease ({resource key: [(card, share)]})
+        self.lease_cards: dict = {}
+        # set once the process may have initialised CUDA under its view
+        # (it imported torch): it can then never be pinned to other cards
+        self.cuda_fixed = False
         self.info: WorkerInfo | None = None
         self.conn: Connection | None = None
         self.registered = asyncio.Event()
@@ -273,6 +356,14 @@ class NodeManager:
         self._quota_throttled_deltas: dict[str, int] = {}
         self._pg_reserved: dict[tuple, dict[str, float]] = {}
         self._pg_prepared: dict[tuple, dict[str, float]] = {}
+        # card pinning: the node's cards, and each reserved bundle's
+        self._cards: dict[str, _Cards] = {}
+        if self.resources_total.get("GPU", 0.0) >= 1.0 - 1e-9:
+            self._cards["GPU"] = _Cards(
+                _node_card_ids(self.resources_total["GPU"]))
+        self._all_cards = tuple(self._cards["GPU"].ids
+                                if "GPU" in self._cards else ())
+        self._pg_cards: dict[tuple, dict] = {}
         self._cluster_view: dict = {}
         self._view_version = 0         # last-seen GCS resource version
         self._hb_last_sent: dict | None = None  # delta-heartbeat baseline
@@ -774,8 +865,9 @@ class NodeManager:
         if w.info is not None:
             self.workers.pop(w.info.worker_id, None)
         if w.lease_resources:
-            self._release_resources(w.lease_resources)
+            self._release_resources(w.lease_resources, w.lease_cards)
             w.lease_resources = None
+            w.lease_cards = {}
             # queued lease requests may now fit (e.g. tasks submitted
             # right after a fleet of pool actors was killed)
             self._maybe_grant_pending()
@@ -842,13 +934,12 @@ class NodeManager:
             else "segments")
         env["RAYT_NODE_ADDR"] = f"{self.address.host}:{self.address.port}"
         env["RAYT_GCS_ADDR"] = f"{self.gcs_address.host}:{self.gcs_address.port}"
-        # Every worker sees every card: no CUDA_VISIBLE_DEVICES per lease,
-        # as the TPU build pins nothing per lease either. Per-lease
-        # pinning comes with multi-GPU (ROADMAP.md item 6).
+        # a new worker sees every card of the node; its first GPU lease
+        # pins it (CUDA_VISIBLE_DEVICES, set by the worker from the grant)
         proc = subprocess.Popen(
             fast_python_argv("ray_tpu_torch.core.worker_main"),
             env=env, stdin=subprocess.DEVNULL)
-        w = _Worker(proc)
+        w = _Worker(proc, self._all_cards)
         self._unregistered.append(w)
         return w
 
@@ -858,7 +949,7 @@ class NodeManager:
         if w is None:
             w = next((c for c in self._unregistered if c.info is None), None)
         if w is None:
-            w = _Worker(proc=_FakeProc())
+            w = _Worker(proc=_FakeProc(), view=self._all_cards)
             self._unregistered.append(w)
         # Claim (set info) before the await so a concurrent registration
         # can't grab this entry via the info-is-None fallback; stay in
@@ -892,33 +983,74 @@ class NodeManager:
         self._maybe_grant_pending()
         return True
 
-    def _try_claim_idle(self) -> _Worker | None:
+    def _try_claim_idle(self, view: tuple | None = None,
+                        repin: bool = False) -> _Worker | None:
         """Atomically (no awaits) claim an idle worker. Callers across await
         points must use this so two concurrent lease grants can't both pick
         the same worker (which would co-locate a task with an actor and
-        deadlock its executor)."""
+        deadlock its executor). It must see the cards `view` (every card
+        of the node when None); with `repin`, one that sees other cards
+        and may still be pinned anew (it never imported torch, as far as
+        the node knows) is claimed instead."""
+        want = self._all_cards if view is None else view
         for w in self.workers.values():
-            if not w.busy and w.actor_id is None and w.conn is not None:
+            if not w.busy and w.actor_id is None and w.conn is not None \
+                    and (w.view == want if not repin
+                         else w.view != want and not w.cuda_fixed):
                 w.busy = True
                 self._replenish_pool()
                 return w
         return None
 
+    async def _claim_for_cards(self, view: tuple) -> _Worker | None:
+        """An idle worker that can serve a lease of the cards `view`: one
+        that sees them already, else one whose process has not imported
+        torch (asked over its connection), which the grant pins anew. A
+        worker found with torch imported keeps its view for good."""
+        w = self._try_claim_idle(view)
+        if w is not None:
+            return w
+        while True:
+            w = self._try_claim_idle(view, repin=True)
+            if w is None:
+                return None
+            try:
+                touched = await w.conn.call("cuda_initialized", None,
+                                            timeout=10)
+            except Exception:
+                touched = True
+            if not touched:
+                return w
+            w.cuda_fixed = True
+            w.busy = False
+
     def _replenish_pool(self):
         """Keep idle_worker_pool_size workers warm (ref: worker_pool.h:212
-        prestart) so actor/task starts don't pay interpreter cold-boot."""
+        prestart) so actor/task starts don't pay interpreter cold-boot.
+        Workers a GPU lease pinned to some of the node's cards do not
+        count: a CPU-only lease takes none of them."""
         if self._stopping:
             return
         target = get_config().idle_worker_pool_size
         idle = sum(1 for w in self.workers.values()
-                   if not w.busy and w.actor_id is None)
+                   if not w.busy and w.actor_id is None
+                   and w.view == self._all_cards)
         starting = len(self._unregistered)
         for _ in range(target - idle - starting):
             self._spawn_worker()
 
-    async def _get_idle_worker(self, timeout_s: float | None = None
-                               ) -> _Worker:
-        w = self._try_claim_idle()
+    async def _claim(self, view: tuple | None) -> _Worker | None:
+        """An idle worker for a lease of the cards `view` (None: a
+        CPU-only lease, which takes one that sees every card)."""
+        if view is None:
+            return self._try_claim_idle()
+        return await self._claim_for_cards(view)
+
+    async def _get_idle_worker(self, timeout_s: float | None = None,
+                               view: tuple | None = None) -> _Worker:
+        """An idle worker for a lease of the cards `view` (None: a
+        CPU-only lease), started if none is free."""
+        w = await self._claim(view)
         if w is not None:
             return w
         cfg = get_config()
@@ -934,7 +1066,7 @@ class NodeManager:
             if time.monotonic() >= deadline:
                 raise TimeoutError("worker startup queue timed out")
             await asyncio.sleep(0.05)
-            cand = self._try_claim_idle()
+            cand = await self._claim(view)
             if cand is not None:
                 return cand
         spawned = self._spawn_worker()
@@ -943,9 +1075,10 @@ class NodeManager:
                     and not spawned.busy:
                 spawned.busy = True
                 return spawned
-            # registration may have been matched to another _Worker entry;
-            # claim any idle one
-            cand = self._try_claim_idle()
+            # registration may have been matched to another _Worker entry
+            # (or another lease took this one): claim any idle one that can
+            # serve the lease
+            cand = await self._claim(view)
             if cand is not None:
                 return cand
             if spawned.proc.poll() is not None:
@@ -954,17 +1087,63 @@ class NodeManager:
         raise TimeoutError("worker startup timed out")
 
     # ------------------------------------------------------------ resources
-    def _try_acquire(self, demand: dict[str, float]) -> bool:
+    def _try_acquire(self, demand: dict[str, float]) -> dict | None:
+        """Take `demand` from the free resources, with the cards of its
+        GPU keys: -> {resource key: [(card, share), ...]} (empty without
+        a GPU), or None when it does not fit now. A key with cards has
+        its free amount from them alone (``_Cards.available``)."""
         for r, amt in demand.items():
-            if self.resources_available.get(r, 0.0) < amt - 1e-9:
-                return False
+            if r not in self._cards and \
+                    self.resources_available.get(r, 0.0) < amt - 1e-9:
+                return None
+        cards: dict = {}
         for r, amt in demand.items():
-            self.resources_available[r] = self.resources_available.get(r, 0.0) - amt
-        return True
+            pool = self._cards.get(r)
+            if pool is None or amt <= 0:
+                continue
+            got = pool.take(amt)
+            if got is None:
+                for key, taken in cards.items():
+                    self._cards[key].give(taken)
+                return None
+            cards[r] = got
+        for r, amt in demand.items():
+            pool = self._cards.get(r)
+            self.resources_available[r] = (
+                pool.available() if pool is not None
+                else self.resources_available.get(r, 0.0) - amt)
+        return cards
 
-    def _release_resources(self, demand: dict[str, float]):
+    def _release_resources(self, demand: dict[str, float],
+                           cards: dict | None = None):
         for r, amt in demand.items():
-            self.resources_available[r] = self.resources_available.get(r, 0.0) + amt
+            if r not in self._cards:
+                self.resources_available[r] = (
+                    self.resources_available.get(r, 0.0) + amt)
+        for r, got in (cards or {}).items():
+            pool = self._cards.get(r)
+            if pool is not None:
+                pool.give(got)
+                self.resources_available[r] = pool.available()
+
+    def _lease_view(self, cards: dict) -> tuple | None:
+        """The CUDA_VISIBLE_DEVICES names of a lease's cards, in the
+        node's order; None for a lease without a GPU."""
+        names = [n for r, got in cards.items()
+                 for n in self._cards[r].names(got)]
+        if not names:
+            return None
+        order = {n: i for i, n in enumerate(self._all_cards)}
+        return tuple(sorted(set(names), key=lambda n: order.get(n, 0)))
+
+    def _pin(self, w: _Worker, cards: dict) -> tuple | None:
+        """Bind a lease's cards to the worker that serves it; -> the view
+        the worker must set (None for a CPU-only lease)."""
+        w.lease_cards = cards
+        view = self._lease_view(cards)
+        if view is not None:
+            w.view = view
+        return view
 
     def _can_ever_satisfy(self, demand: dict[str, float]) -> bool:
         return all(self.resources_total.get(r, 0.0) >= amt - 1e-9
@@ -1223,7 +1402,8 @@ class NodeManager:
                 f"quota_throttled: job {job_hex[:12]} at "
                 f"{q.get('used', 0):g}/{q.get('share', 0):g} "
                 f"{q.get('resource', 'CPU')} fair share")
-        if throttled or not self._try_acquire(demand):
+        cards = None if throttled else self._try_acquire(demand)
+        if cards is None:
             if allow_spill and not throttled:
                 target = await self._pick_spillback_fresh(demand, strategy)
                 if target is not None:
@@ -1260,20 +1440,22 @@ class NodeManager:
                     if e[1] is not fut]
                 trace["reason"] = "caller gone while queued"
                 return ("cancelled", trace["reason"])
+            cards = outcome
             if conn.closed:
                 # granted (resources acquired by _maybe_grant_pending)
                 # but the caller died before we resumed: hand the
                 # acquisition back instead of leasing to nobody
-                self._release_resources(demand)
+                self._release_resources(demand, cards)
                 self._maybe_grant_pending()
                 trace["reason"] = "caller gone as queued lease granted"
                 return ("cancelled", trace["reason"])
         granted: list = []
         while True:
             try:
-                w = await self._get_idle_worker()
+                w = await self._get_idle_worker(
+                    view=self._lease_view(cards))
             except Exception as e:
-                self._release_resources(demand)
+                self._release_resources(demand, cards)
                 self._maybe_grant_pending()
                 if granted:
                     break  # partial batch beats failing granted leases
@@ -1281,25 +1463,33 @@ class NodeManager:
             w.busy = True
             w.lease_resources = dict(demand)
             w.lease_job = job_hex
-            granted.append((w.info, w.info.worker_id.hex()))
+            view = self._pin(w, cards)
+            # the token names the worker, and the cards it must see: the
+            # caller puts them on every spec it pushes on this lease
+            granted.append((w.info, lease_token(w.info.worker_id.hex(),
+                                                view)))
             # grant further batch members only while resources are
             # immediately acquirable — never queue mid-batch (the first
             # lease owns the queue-wait slot; a partial grant tells the
             # client to come back, keeping the FIFO fair across clients)
-            if len(granted) >= count or not self._try_acquire(demand):
+            if len(granted) >= count:
+                break
+            cards = self._try_acquire(demand)
+            if cards is None:
                 break
         if not batched:
             return ("granted", granted[0][0], granted[0][1])
         return ("granted", granted)
 
-    def rpc_return_lease(self, conn, lease_token: str):
-        wid = WorkerID.from_hex(lease_token)
+    def rpc_return_lease(self, conn, token: str):
+        wid = WorkerID.from_hex(parse_lease_token(token)[0])
         w = self.workers.get(wid)
         if w is None:
             return False
         if w.lease_resources:
-            self._release_resources(w.lease_resources)
+            self._release_resources(w.lease_resources, w.lease_cards)
             w.lease_resources = None
+            w.lease_cards = {}
         w.lease_job = ""
         w.busy = False
         w.last_idle = time.monotonic()
@@ -1319,14 +1509,17 @@ class NodeManager:
                 continue
             if self._quota_over_share(job, demand):
                 deferred.append(entry)
-            elif self._try_acquire(demand):
-                fut.set_result(True)
+                continue
+            cards = self._try_acquire(demand)
+            if cards is not None:
+                fut.set_result(cards)
             else:
                 still.append(entry)
         for entry in deferred:
             demand, fut, job = entry
-            if not still and self._try_acquire(demand):
-                fut.set_result(True)
+            cards = None if still else self._try_acquire(demand)
+            if cards is not None:
+                fut.set_result(cards)
             else:
                 still.append(entry)
         self._pending_leases = still
@@ -1342,8 +1535,10 @@ class NodeManager:
         placement_demand = demand or {"CPU": 1.0}
         if not self._can_ever_satisfy(placement_demand):
             return None
+        cards: dict = {}
         if demand:
-            if not self._try_acquire(demand):
+            cards = self._try_acquire(demand)
+            if cards is None:
                 return None
         elif any(self.resources_available.get(r, 0.0) < amt
                  for r, amt in placement_demand.items()):
@@ -1365,15 +1560,18 @@ class NodeManager:
                     spec.actor_id, spec.name or "")
         try:
             w = await self._get_idle_worker(
-                timeout_s=budget - time.monotonic())
+                timeout_s=budget - time.monotonic(),
+                view=self._lease_view(cards))
         except Exception as e:
-            self._release_resources(demand)
+            self._release_resources(demand, cards)
             self._maybe_grant_pending()
             return (None, f"worker startup failed: {e}")
         w.busy = True
         w.actor_id = spec.actor_id
         w.lease_resources = dict(demand)
         w.lease_job = spec.job_id.hex() if spec.job_id else ""
+        # the actor's process sees its lease's cards from its constructor on
+        spec.gpu_ids = self._pin(w, cards)
         logger.info("start_actor %s: pushing create to worker pid=%s",
                     spec.actor_id, w.proc.pid)
         try:
@@ -1389,8 +1587,9 @@ class NodeManager:
             # create may still be executing on it).
             w.actor_id = None
             if w.lease_resources:
-                self._release_resources(w.lease_resources)
+                self._release_resources(w.lease_resources, w.lease_cards)
                 w.lease_resources = None
+                w.lease_cards = {}
             if w.info is not None:
                 self.workers.pop(w.info.worker_id, None)
             try:
@@ -1404,8 +1603,9 @@ class NodeManager:
         if err is not None:
             w.busy = False
             w.actor_id = None
-            self._release_resources(demand)
+            self._release_resources(demand, w.lease_cards)
             w.lease_resources = None
+            w.lease_cards = {}
             self._maybe_grant_pending()
             return (w.info, err)
         return (w.info, None)
@@ -1440,9 +1640,11 @@ class NodeManager:
 
     def rpc_pg_prepare(self, conn, arg):
         pg_id, bundle_index, demand = arg
-        if not self._try_acquire(demand):
+        cards = self._try_acquire(demand)
+        if cards is None:
             return False
         self._pg_prepared[(pg_id, bundle_index)] = dict(demand)
+        self._pg_cards[(pg_id, bundle_index)] = cards
         return True
 
     async def rpc_pg_commit(self, conn, arg):
@@ -1458,6 +1660,12 @@ class NodeManager:
             self.resources_total[key] = self.resources_total.get(key, 0.0) + amt
             self.resources_available[key] = (
                 self.resources_available.get(key, 0.0) + amt)
+        # the bundle's leases take their cards from the bundle's own
+        for r, got in self._pg_cards.get((pg_id, bundle_index), {}).items():
+            key = f"{r}_pg_{pg_id.hex()}_{bundle_index}"
+            self._cards[key] = _Cards(self._cards[r].names(got),
+                                      [share for _, share in got])
+            self.resources_available[key] = self._cards[key].available()
         await self._push_heartbeat()
         return True
 
@@ -1490,7 +1698,8 @@ class NodeManager:
         pg_id, bundle_index = arg
         demand = self._pg_prepared.pop((pg_id, bundle_index), None)
         if demand is not None:
-            self._release_resources(demand)
+            self._release_resources(
+                demand, self._pg_cards.pop((pg_id, bundle_index), None))
             self._maybe_grant_pending()
             return True
         demand = self._pg_reserved.pop((pg_id, bundle_index), None)
@@ -1500,7 +1709,9 @@ class NodeManager:
             key = f"{r}_pg_{pg_id.hex()}_{bundle_index}"
             self.resources_total.pop(key, None)
             self.resources_available.pop(key, None)
-        self._release_resources(demand)
+            self._cards.pop(key, None)
+        self._release_resources(
+            demand, self._pg_cards.pop((pg_id, bundle_index), None))
         self._maybe_grant_pending()
         await self._push_heartbeat()
         return True

@@ -273,6 +273,9 @@ def _dag_loop_body(self, sched: _ActorSchedule):
                 + [("producer", ch) for ch in outs])
             reporter.start()
         in_mesh = False
+        # process-group rank of each DAG rank: the in-mesh gather returns
+        # the values in DAG (bind) order
+        pg_order = None
         # per-collective-op AGREED lowering decision, settled on the
         # op's first tick (op.pos -> bool | "broken"): the in-mesh path
         # requires EVERY rank to run the same collective, so a rank
@@ -299,6 +302,8 @@ def _dag_loop_body(self, sched: _ActorSchedule):
                 fps = group.gather_obj(
                     dag_collective.client_fingerprint())
                 in_mesh = dag_collective.mesh_shared(fps)
+                if in_mesh:
+                    pg_order = [f[0] for f in fps]
             except Exception:
                 in_mesh = False
         tick_no = 0
@@ -420,7 +425,8 @@ def _dag_loop_body(self, sched: _ActorSchedule):
                             result = (dagc.in_mesh_allreduce(
                                 args[0], red_op)
                                 if kind == "allreduce"
-                                else dagc.in_mesh_allgather(args[0]))
+                                else dagc.in_mesh_allgather(args[0],
+                                                            pg_order))
                         elif kind == "allreduce":
                             result = group.allreduce(args[0], op=red_op)
                         else:

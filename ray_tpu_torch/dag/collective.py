@@ -9,10 +9,15 @@ Lowering is TWO-TIER on the channel fast path:
 
 * **In-mesh**: when every participant is one rank of ONE device set
   (``mesh_shared`` over the fingerprints the ranks exchange at group
-  init) and contributes a tensor, the reduction runs on the device. On
-  one card that is the degenerate world of one: the reduction is the
-  identity and the tensor never leaves its device. More than one rank
-  (NCCL between cards) is not ported yet: ROADMAP.md item 6.
+  init) and contributes a tensor, the reduction runs on the device: over
+  the default process group the participants started (``dist.all_reduce``
+  / ``dist.all_gather`` on their own device: NCCL for CUDA tensors, gloo
+  for CPU ones), as the reference's ranks reduce over a ``ranks`` mesh
+  axis in one jit (ray_tpu/dag/collective.py:169-206). A world of one is
+  the degenerate case: the reduction is the identity and the tensor never
+  leaves its device. A participant's DAG rank (its position in
+  ``bind``) need not be its process-group rank: the gather returns the
+  values in DAG order.
 * **Out-of-band fallback**: the host tier of ``util/collective``
   (GCS-KV rendezvous, rank-0 star / peer ring) — the NCCL-group analog
   for actors that do NOT share a device set (the common CPU-actor
@@ -139,9 +144,9 @@ def value_on_device(value) -> bool:
     return is_device_value(value)
 
 
-_REDUCERS = {"sum": "sum", "prod": "prod", "min": "min", "max": "max"}
-_MULTI_RANK = ("the in-mesh collective over more than one process is not "
-               "ported yet (ROADMAP.md item 6: the NCCL tier)")
+_REDUCERS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
+# in-mesh calls made in this process, by kind: where the lowering went
+in_mesh_calls = {"allreduce": 0, "allgather": 0}
 
 
 def _world() -> int:
@@ -155,31 +160,50 @@ def _world() -> int:
 def in_mesh_allreduce(value, op: str = "sum"):
     """The in-mesh reduction — the participant calls this instead of the
     out-of-band group. World of one: the reduction is the identity, and
-    the tensor stays on its device (a non-tensor becomes a CPU tensor)."""
+    the tensor stays on its device (a non-tensor becomes a CPU tensor).
+    More ranks: one all-reduce over the default process group into a new
+    tensor on the value's device (the value itself is not written)."""
     import torch
 
     if op not in _REDUCERS:
         raise ValueError(f"in-mesh allreduce does not support op {op!r}")
     t = torch.as_tensor(value)
+    in_mesh_calls["allreduce"] += 1
     if _world() == 1:
         return t
     return _in_mesh_stack_reduce(t, op)
 
 
-def in_mesh_allgather(value) -> list:
+def in_mesh_allgather(value, order=None) -> list:
     """In-mesh twin of the out-of-band allgather: returns the
-    participants' values in rank order, on their device."""
+    participants' values on their device, in DAG order. ``order[i]`` is
+    the process-group rank of DAG rank i (None: the two orders agree)."""
     import torch
 
     t = torch.as_tensor(value)
+    in_mesh_calls["allgather"] += 1
     if _world() == 1:
         return [t]
-    return list(_in_mesh_stack_gather(t))
+    gathered = _in_mesh_stack_gather(t)
+    return gathered if order is None else [gathered[r] for r in order]
 
 
 def _in_mesh_stack_reduce(arr, op: str):
-    raise NotImplementedError(_MULTI_RANK)
+    """Every rank's ``arr`` reduced with ``op`` over the default process
+    group (the participants' own backend: NCCL or gloo)."""
+    import torch.distributed as dist
+
+    out = arr.clone()
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, _REDUCERS[op]))
+    return out
 
 
-def _in_mesh_stack_gather(arr):
-    raise NotImplementedError(_MULTI_RANK)
+def _in_mesh_stack_gather(arr) -> list:
+    """Every rank's ``arr``, in process-group rank order."""
+    import torch
+    import torch.distributed as dist
+
+    arr = arr.contiguous()
+    out = [torch.empty_like(arr) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, arr)
+    return out

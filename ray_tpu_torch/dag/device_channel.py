@@ -14,7 +14,9 @@ host pickle bounce). The split (core/device_objects.py):
   re-framed as raw host bytes + dtype/shape metadata
   (``pack_device_tree``): one host view of the tensor (a CUDA tensor is
   copied to host memory once, a CPU tensor viewed in place; bf16 rides as
-  its uint16 bits — ``device_objects.host_shard_view``) travels as a
+  its uint16 bits; a sharded ``DTensor`` is gathered whole, a collective
+  every rank of its mesh runs as it writes its own edge —
+  ``device_objects.host_shard_view``) travels as a
   pickle-5 OUT-OF-BAND buffer, scatter-written into the ring slot — the
   pickle stream itself never contains the tensor's storage. The consumer
   rebuilds the tensor on its own device (the CUDA card when it has one)

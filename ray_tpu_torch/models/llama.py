@@ -516,14 +516,19 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig):
 
 # ----------------------------------------------------------------- decoding
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
-                  device: str | torch.device | None = None) -> dict:
+                  device: str | torch.device | None = None,
+                  n_kv_heads: int | None = None) -> dict:
     """A zeroed KV cache: ``k``/``v`` ``[n_layers, batch, max_len, n_kv_heads,
     head_dim]`` in ``cfg.dtype``, ``length`` (int32 scalar: the write cursor)
     and ``start`` (int32 ``[batch]``: each row's first real slot; left-pad
-    slots ``[0, start)`` are masked and rope positions are start-relative)."""
+    slots ``[0, start)`` are masked and rope positions are start-relative).
+    ``n_kv_heads`` is this rank's share of the heads under a tensor axis
+    (``cfg.n_kv_heads / tp``, the cache sharded by
+    ``kv_cache_logical_axes``); None holds them all."""
     dev = resolve_device(device)
     max_len = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, n_kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -554,7 +559,8 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor,
 
 
 def _decode_block(cfg: LlamaConfig, x, layer, k_cache, v_cache, cos, sin,
-                  positions, cache_len, start=None, abs_positions=None):
+                  positions, cache_len, start=None, abs_positions=None,
+                  dist: _Dist | None = None):
     """Single-step (or chunked prefill) block with KV cache.
 
     x: [b, s, d]; k_cache/v_cache: [b, max_len, nkv, hd], written in place
@@ -562,13 +568,29 @@ def _decode_block(cfg: LlamaConfig, x, layer, k_cache, v_cache, cos, sin,
     `positions` are rope positions (start-relative for left-padded rows),
     within the rope table (decode_step checks); `abs_positions` are cache-slot positions used
     for masking; `start` [b] hides the left-pad slots of each row.
+
+    With ``dist`` (a tensor-parallel engine), ``layer`` holds this rank's
+    shards and the cache this rank's kv heads: the block runs its local
+    heads and FFN columns, and Megatron's g sums ``wo``'s and ``w_down``'s
+    partial products over the tensor group, as in ``_block``.
     """
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tp = None
+    if dist is not None:
+        layer = dist.gather(layer)
+        tp = dist.tp
+        t = col.group_size(tp)
+        nh, nkv = nh // t, nkv // t
+
+    def proj(name, h, h_tp=None):
+        return _proj(cfg, layer, name, h, tp, h_tp)
+
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _proj(cfg, layer, "wq", h).reshape(b, s, nh, hd)
-    kk = _proj(cfg, layer, "wk", h).reshape(b, s, nkv, hd)
-    vv = _proj(cfg, layer, "wv", h).reshape(b, s, nkv, hd)
+    h_tp = col.psum_grad(h, tp)
+    q = proj("wq", h, h_tp).reshape(b, s, nh, hd)
+    kk = proj("wk", h, h_tp).reshape(b, s, nkv, hd)
+    vv = proj("wv", h, h_tp).reshape(b, s, nkv, hd)
     q = apply_rope(q, cos, sin, positions)
     kk = apply_rope(kk, cos, sin, positions)
     _write_kv(k_cache, kk, cache_len)
@@ -589,11 +611,11 @@ def _decode_block(cfg: LlamaConfig, x, layer, k_cache, v_cache, cos, sin,
     logits = logits.masked_fill(~mask[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
     attn = torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(b, s, nh * hd)
-    x = x + _proj(cfg, layer, "wo", attn)
+    x = x + proj("wo", attn)
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    x = x + _proj(cfg, layer, "w_down",
-                  F.silu(_proj(cfg, layer, "w_gate", h))
-                  * _proj(cfg, layer, "w_up", h))
+    h_tp = col.psum_grad(h, tp)
+    x = x + proj("w_down", F.silu(proj("w_gate", h, h_tp))
+                 * proj("w_up", h, h_tp))
     return x, k_cache, v_cache
 
 
@@ -615,7 +637,13 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     A rope position past the table (``max_seq_len``) raises ValueError,
     before anything is written: the reference gathers NaN there, and on
     the card the gather is a device-side assert. The check reads the
-    largest position back to the host (one small copy per call)."""
+    largest position back to the host (one small copy per call).
+
+    Inside a tensor-parallel engine's sharding context
+    (``parallel.mesh.use_sharding``) every rank of the tensor group calls it
+    with the same tokens, its own param shards and its cache of
+    ``n_kv_heads / tp`` heads; the embedding and the LM head are gathered
+    whole, so every rank gets the full logits."""
     if cfg.moe:
         raise ValueError(
             "decode_step has no MoE FFN: the reference's decode block takes "
@@ -640,7 +668,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         raise ValueError(
             f"rope position {last} is past the table of max_seq_len="
             f"{cfg.max_seq_len}: a row of this cache decodes too deep")
-    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    dist = _dist(cfg, params)
+    x = F.embedding(tokens, _leaf(params, dist, "embed")).to(cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=dev)
     layers = _stacked_layers(params)
@@ -650,8 +679,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                                cache["v"].unbind(0)):
         x, _, _ = _decode_block(cfg, x, dict(zip(names, weights)), kc, vc,
                                 cos, sin, positions, cache_len, start=start,
-                                abs_positions=abs_positions)
+                                abs_positions=abs_positions, dist=dist)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ _head_matrix(params, cfg)).float()
+    logits = (x[:, -1] @ _head_matrix(params, cfg, dist)).float()
     cache["length"] = cache_len + s
     return logits, cache

@@ -91,6 +91,62 @@ def init_process_group(world_size: int, rank: int, address: str,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+class CommandGroup:
+    """The default process group of ``world`` ranks that rank 0 drives:
+    rank 0 sends each command (any picklable object) and the tensors it
+    needs, and ranks 1..world-1 wait on them. A tensor-parallel engine's
+    followers (``serve/llm_tp.py``) and an IMPALA learner's ranks
+    (``rl/impala.py``) are such groups."""
+
+    def __init__(self, world: int, rank: int, address: str, device,
+                 timeout_s: float = 300.0):
+        self.world, self.rank, self.device = world, rank, device
+        init_process_group(world, rank, address, device=device,
+                           timeout_s=timeout_s)
+
+    def objects(self, obj=None):
+        """Rank 0's picklable ``obj`` on every rank (the others pass
+        nothing)."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=0,
+            device=self.device if self.device.type == "cuda" else None)
+        return box[0]
+
+    def broadcast(self, t=None, shape=None, dtype=None):
+        """Rank 0's tensor ``t`` on every rank; the others give its shape
+        and dtype."""
+        import torch
+        import torch.distributed as dist
+
+        t = (t.detach().contiguous() if self.rank == 0 else
+             torch.empty(shape, dtype=dtype, device=self.device))
+        dist.broadcast(t, src=0)
+        return t
+
+    def scatter(self, t, axis: int, shape, dtype):
+        """This rank's part of rank 0's tensor ``t`` (of ``shape``), cut
+        into ``world`` equal parts along ``axis``."""
+        import torch
+        import torch.distributed as dist
+
+        local = list(shape)
+        local[axis] //= self.world
+        out = torch.empty(local, dtype=dtype, device=self.device)
+        parts = ([p.contiguous() for p in t.chunk(self.world, dim=axis)]
+                 if self.rank == 0 else None)
+        dist.scatter(out, parts, src=0)
+        return out
+
+    def close(self) -> None:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def _resolve_sizes(axes: Mapping[str, int], n: int
                    ) -> tuple[list[str], list[int]]:
     names = [a for a in AXIS_ORDER if a in axes]

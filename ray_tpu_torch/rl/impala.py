@@ -24,6 +24,7 @@ import cloudpickle
 import numpy as np
 
 import ray_tpu_torch as rt
+from ray_tpu_torch.parallel.mesh import CommandGroup
 from ray_tpu_torch.rl.actor_manager import FaultTolerantActorManager
 from ray_tpu_torch.rl.env import make_vector_env, require_discrete
 from ray_tpu_torch.rl.env_runner import EnvRunner
@@ -42,9 +43,10 @@ class IMPALAConfig:
     # ref: connector_v2.py:31 / connector_pipeline_v2.py:19)
     env_to_module: object = None
     learner_pipeline: object = None
-    # >1 would shard each learner batch over this many local cards; the
-    # port runs one learner on one device (ROADMAP.md item 6), so >1
-    # raises NotImplementedError
+    # >1 shards each learner batch's env axis over this many learner
+    # ranks, one process and one device each (num_gpus_per_learner GPUs a
+    # rank), gang-leased through a placement group; a cluster that cannot
+    # place them raises (the reference drops its mesh instead)
     learner_devices: int = 0
     # rllib's AlgorithmConfig.learners(num_gpus_per_learner=...): the
     # learner actor is leased this many GPUs and runs on the card when it
@@ -142,12 +144,144 @@ def _tree_copy(tree):
     return tree
 
 
-def _check_learner_devices(cfg) -> None:
-    if cfg.learner_devices > 1:
-        raise NotImplementedError(
-            f"learner_devices={cfg.learner_devices}: a learner sharded over "
-            "several cards is ROADMAP.md item 6; the port's learner runs on "
-            "one device")
+def _env_axis(key: str) -> int:
+    """The env (B) axis of a learner batch key: 0 of last_obs [B, ...],
+    1 of every [T, B, ...] key."""
+    return 0 if key == "last_obs" else 1
+
+
+class _LearnerRanks(CommandGroup):
+    """The process group of one learner over ``learner_devices=N`` ranks
+    (the reference's learner mesh, ray_tpu/rl/impala.py:370-395). Rank 0
+    is the IMPALALearner actor, ranks 1..N-1 IMPALALearnerRank actors, one
+    process and one device each: NCCL on cards, gloo on the CPU.
+
+    Each update rank 0 sends the batch's layout, then scatters every key
+    along its env axis; a key whose env axis N does not divide goes whole
+    to every rank. Every rank takes its slice's gradients, and the
+    all-reduced mean feeds the clip and Adam on every rank: the clip sees
+    the whole batch's gradient, so the update is the one-device update on
+    the whole batch, and the params stay equal across the ranks."""
+
+    def send(self, cmd: str, meta=None) -> None:
+        """Rank 0: the next command, for every other rank's ``recv``."""
+        self.objects((cmd, meta))
+
+    def recv(self) -> tuple:
+        return self.objects()
+
+    def layout(self, batch: dict) -> dict:
+        """key -> (shape, dtype, the env axis it is cut along or None)."""
+        out = {}
+        for k, v in batch.items():
+            axis = _env_axis(k)
+            cut = v.dim() > axis and v.shape[axis] % self.world == 0
+            out[k] = (tuple(v.shape), v.dtype, axis if cut else None)
+        return out
+
+    def split(self, batch: dict | None, layout: dict) -> dict:
+        """This rank's slice of the batch rank 0 holds (None elsewhere)."""
+        out = {}
+        for k, (shape, dtype, axis) in layout.items():
+            t = batch[k] if self.rank == 0 else None
+            out[k] = (self.broadcast(t, shape, dtype) if axis is None else
+                      self.scatter(t, axis, shape, dtype))
+        return out
+
+    def mean(self, grads, aux: dict):
+        """The gradients and the loss terms averaged over the ranks."""
+        import torch
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat /= self.world
+        out, i = [], 0
+        for g in grads:
+            out.append(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+        names = sorted(aux)
+        terms = torch.stack([aux[k].float() for k in names])
+        dist.all_reduce(terms)
+        terms /= self.world
+        return out, dict(zip(names, terms))
+
+    def sync(self, leaves) -> None:
+        """Rank 0's params into every rank's (in place)."""
+        import torch
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for t in leaves:
+                dist.broadcast(t.data, src=0)
+
+
+def _learner_state(module_cfg, cfg, seed: int):
+    """(device, params, trainable leaves, optimizer) of one learner rank."""
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.rl import module as rlm
+    from ray_tpu_torch.rl.learner import (ClippedAdam, learner_device,
+                                          trainable)
+
+    device = resolve_device(learner_device(cfg.num_gpus_per_learner))
+    params = rlm.init_params(module_cfg, seed, device)
+    leaves = trainable(params)
+    return device, params, leaves, ClippedAdam(leaves, cfg.lr,
+                                               cfg.max_grad_norm)
+
+
+def _rank_update(params, leaves, optimizer, batch: dict, cfg,
+                 ranks: "_LearnerRanks | None") -> dict:
+    """One V-trace update of this rank's batch; across ranks, on the
+    all-reduced mean gradient."""
+    import torch
+
+    loss, aux = impala_loss(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    if ranks is not None:
+        grads, aux = ranks.mean(grads, aux)
+    optimizer.step(grads)
+    return aux
+
+
+def _start_learner(config, module_blob: bytes, cfg_blob: bytes):
+    """The learner actor (rank 0), and with ``learner_devices=N > 1`` its
+    N-1 other ranks, gang-leased through a placement group of N bundles
+    of ``num_gpus_per_learner`` GPUs and a CPU each -> (learner, the
+    other ranks, the placement group or None). A cluster that cannot
+    place the N ranks raises: the reference quietly drops its mesh when
+    it has fewer devices (ray_tpu/rl/impala.py:373-375), the port has no
+    such fallback."""
+    g = config.num_gpus_per_learner
+    n = max(1, int(config.learner_devices))
+    learner_cls = rt.remote(num_cpus=1, num_gpus=g)(IMPALALearner)
+    if n == 1:
+        return learner_cls.remote(module_blob, cfg_blob, config.seed), \
+            [], None
+    bundle = {"CPU": 1.0, **({"GPU": float(g)} if g > 0 else {})}
+    have = rt.cluster_resources()
+    short = {r: amt * n for r, amt in bundle.items()
+             if have.get(r, 0.0) < amt * n - 1e-9}
+    try:
+        if short:
+            raise TimeoutError(f"the cluster holds {have}")
+        pg = rt.placement_group([dict(bundle) for _ in range(n)], "PACK",
+                                timeout=config.call_timeout_s)
+    except TimeoutError as e:
+        raise RuntimeError(
+            f"learner_devices={n} needs {n} learner ranks of {bundle}, and "
+            f"the cluster cannot place them ({e}); lower learner_devices or "
+            "num_gpus_per_learner") from None
+    # threaded: serve holds one thread for the learner's life
+    rank_cls = rt.remote(num_cpus=1, num_gpus=g,
+                         max_concurrency=2)(IMPALALearnerRank)
+    others = [rank_cls.options(scheduling_strategy=pg.bundle_strategy(i))
+              .remote(module_blob, cfg_blob, config.seed)
+              for i in range(1, n)]
+    learner = learner_cls.options(
+        scheduling_strategy=pg.bundle_strategy(0)).remote(
+            module_blob, cfg_blob, config.seed, others)
+    return learner, others, pg
 
 
 def _sample_fragment_nbytes(module_cfg, rollout_fragment_length: int,
@@ -269,33 +403,42 @@ def impala_loss(params, batch: dict, cfg):
 class IMPALALearner:
     """V-trace learner on its device: the card when the config leases it
     a GPU (``num_gpus_per_learner`` above 0; no CUDA then raises), the
-    CPU at 0. One update consumes one aggregated batch [T, B, ...]."""
+    CPU at 0. One update consumes one aggregated batch [T, B, ...]. Given
+    ``ranks`` (the other ranks' IMPALALearnerRank actors, with
+    ``learner_devices`` above 1) it is rank 0 of a learner over several
+    devices, and each update is data parallel over them
+    (``_LearnerRanks``)."""
 
     def __init__(self, module_cfg_blob: bytes, cfg_blob: bytes,
-                 seed: int = 0):
-        import torch
-
-        from ray_tpu_torch.device import resolve_device
-        from ray_tpu_torch.rl import module as rlm
-        from ray_tpu_torch.rl.learner import (ClippedAdam, learner_device,
-                                              trainable)
-
+                 seed: int = 0, ranks: list | None = None):
         self.cfg: IMPALAConfig = cloudpickle.loads(cfg_blob)
-        _check_learner_devices(self.cfg)
         self.module_cfg = cloudpickle.loads(module_cfg_blob)
-        self.device = resolve_device(
-            learner_device(self.cfg.num_gpus_per_learner))
-        self.params = rlm.init_params(self.module_cfg, seed, self.device)
-        self._leaves = trainable(self.params)
-        self.optimizer = ClippedAdam(self._leaves, self.cfg.lr,
-                                     self.cfg.max_grad_norm)
+        self.device, self.params, self._leaves, self.optimizer = \
+            _learner_state(self.module_cfg, self.cfg, seed)
         self.num_updates = 0
         self.batch_arrivals: dict[str, int] = {}
         cfg = self.cfg
+        self._ranks = None
+        if ranks:
+            from ray_tpu_torch.parallel.mesh import free_address
+            from ray_tpu_torch.util.collective.collective import _host_ip
+
+            world = len(ranks) + 1
+            address = free_address(_host_ip())
+            self._rank_runs = [r.serve.remote(address, i + 1, world)
+                               for i, r in enumerate(ranks)]
+            self._ranks = _LearnerRanks(world, 0, address, self.device,
+                                        cfg.call_timeout_s)
+            self._ranks.sync(self._leaves)
 
         def update(params, optimizer, batch):
-            loss, aux = impala_loss(params, batch, cfg)
-            optimizer.step(torch.autograd.grad(loss, self._leaves))
+            ranks_ = self._ranks
+            if ranks_ is not None:
+                layout = ranks_.layout(batch)
+                ranks_.send("update", layout)
+                batch = ranks_.split(batch, layout)
+            aux = _rank_update(params, self._leaves, optimizer, batch, cfg,
+                               ranks_)
             return params, optimizer, aux
 
         if self.cfg.use_device_edges:
@@ -336,7 +479,8 @@ class IMPALALearner:
                 self._recorder._pub.publish({
                     "kind": "run", "run_id": self._run_id,
                     "experiment": exp, "job_id": job_hex,
-                    "world_size": 1, "state": "RUNNING",
+                    "world_size": max(1, self.cfg.learner_devices),
+                    "state": "RUNNING",
                     "ts": time.time()})
                 self._update = self._recorder.wrap_jit(
                     self._update, "impala_update")
@@ -424,6 +568,9 @@ class IMPALALearner:
         from ray_tpu_torch.rl.learner import load_into
 
         load_into(self.params, params)
+        if self._ranks is not None:
+            self._ranks.send("sync")
+            self._ranks.sync(self._leaves)
         return True
 
     def placement(self) -> dict:
@@ -440,6 +587,49 @@ class IMPALALearner:
         return True
 
 
+class IMPALALearnerRank:
+    """Rank k > 0 of a learner over ``learner_devices`` ranks: the same
+    params and optimizer as rank 0 on its own device, driven by rank 0's
+    commands over the ranks' process group (``serve``)."""
+
+    def __init__(self, module_cfg_blob: bytes, cfg_blob: bytes,
+                 seed: int = 0):
+        self.cfg: IMPALAConfig = cloudpickle.loads(cfg_blob)
+        self.module_cfg = cloudpickle.loads(module_cfg_blob)
+        self.device, self.params, self._leaves, self.optimizer = \
+            _learner_state(self.module_cfg, self.cfg, seed)
+        self.num_updates = 0
+
+    def serve(self, address: str, rank: int, world: int) -> int:
+        """Join rank 0's group and run its commands until it stops: an
+        update of this rank's slice, or a copy of rank 0's params."""
+        ranks = _LearnerRanks(world, rank, address, self.device,
+                              self.cfg.call_timeout_s)
+        ranks.sync(self._leaves)
+        try:
+            while True:
+                cmd, layout = ranks.recv()
+                if cmd == "update":
+                    batch = ranks.split(None, layout)
+                    _rank_update(self.params, self._leaves, self.optimizer,
+                                 batch, self.cfg, ranks)
+                    self.num_updates += 1
+                elif cmd == "sync":
+                    ranks.sync(self._leaves)
+                else:
+                    return self.num_updates
+        finally:
+            ranks.close()
+
+    def get_weights(self):
+        from ray_tpu_torch.rl.module import to_host
+
+        return to_host(self.params)
+
+    def ping(self) -> bool:
+        return True
+
+
 class IMPALA:
     """Algorithm driver. train() = drain completed sample futures,
     aggregate, run learner updates on every ready batch, periodically
@@ -448,7 +638,6 @@ class IMPALA:
 
     def __init__(self, config: IMPALAConfig):
         self.config = config
-        _check_learner_devices(config)
         probe = make_vector_env(config.env, 1, config.seed)
         require_discrete(probe, type(self).__name__)
         obs_shape = getattr(probe, "observation_shape", None)
@@ -471,10 +660,8 @@ class IMPALA:
         agg_cls = rt.remote(num_cpus=1)(AggregatorActor)
         self._aggregators = [agg_cls.remote()
                              for _ in range(config.num_aggregators)]
-        learner_cls = rt.remote(
-            num_cpus=1, num_gpus=config.num_gpus_per_learner)(IMPALALearner)
-        self._learner = learner_cls.remote(module_blob, cfg_blob,
-                                           config.seed)
+        self._learner, self._learner_ranks, self._learner_pg = \
+            _start_learner(config, module_blob, cfg_blob)
         # asked for now, read once the runners are spawned: the fleet
         # boots while the learner does (torch, its CUDA context)
         init_weights = self._learner.get_weights.remote()
@@ -800,8 +987,14 @@ class IMPALA:
                 pass
             self._dag = None
         for a in (self._runners._actors + self._aggregators
-                  + [self._learner]):
+                  + [self._learner] + self._learner_ranks):
             try:
                 rt.kill(a)
             except Exception:
                 pass
+        if self._learner_pg is not None:
+            try:
+                rt.remove_placement_group(self._learner_pg)
+            except Exception:
+                pass
+            self._learner_pg = None

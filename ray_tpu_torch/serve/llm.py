@@ -26,7 +26,12 @@ and a decode pool (``DecodeLlamaService``, the ingress): each request's KV
 rows cross from one to the other as one tick of a device edge
 (``dag/device_channel.py``).
 
-Not here: tensor parallelism (ROADMAP item 6).
+``tp`` above 1 shards the engine over that many ranks, one process and one
+device each (``serve/llm_tp.py``): this process is rank 0 and starts the
+others; ``tp=None`` takes every card the process sees, as the reference
+takes every local device (1 in a runtime worker whose lease holds no GPU:
+``llm_app`` without ``tp`` leases none). A tensor-parallel engine does not hand KV rows to
+another engine (``prefill_only``, ``generate_prefilled``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import lora as lora_mod
 from ray_tpu_torch.models.convert import check_params, params_from_numpy
+from ray_tpu_torch.serve import llm_tp
 from ray_tpu_torch.serve.handle import prefix_block_tokens
 from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
 from ray_tpu_torch.serve.request_context import current_request_obs
@@ -105,8 +111,21 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
+def _visible_devices(device: torch.device) -> int:
+    """How many devices of `device`'s type this process may take: the
+    cards it sees (its lease's, once pinned); 1 in a runtime worker whose
+    lease holds no GPU (it sees every card of the node and owns none, and
+    runs on its default card as it did before pinning); 1 for the CPU."""
+    from ray_tpu_torch._internal.accelerators import _in_lease_without_gpu
+
+    if device.type != "cuda" or _in_lease_without_gpu():
+        return 1
+    return torch.cuda.device_count()
+
+
 class LLMEngine:
-    """Continuously batched generation engine on one CUDA card.
+    """Continuously batched generation engine on one CUDA card, or on
+    ``tp`` cards, one process each (``serve/llm_tp.py``).
 
     The decode batch is `max_batch` fixed SLOTS over one persistent KV cache
     with per-row depths (cache["length"] is [b]): a new request is prefilled
@@ -116,7 +135,10 @@ class LLMEngine:
     queue between steps.
 
     ``device=None`` means the CUDA card (raises without one); pass
-    ``device="cpu"`` to run on the CPU on purpose. ``params`` may be the
+    ``device="cpu"`` to run on the CPU on purpose (``tp`` ranks are then
+    gloo CPU processes). ``tp=None`` is every card this process sees (one
+    in a replica leased one GPU), 1 in a worker whose lease holds no GPU
+    and on the CPU; ``shutdown()`` ends the other ranks. ``params`` may be the
     JAX package's tree as numpy arrays (carried over with
     ``params_from_numpy``) or the port's dict of tensors, either one with a
     ``"lora"`` adapter subtree; both are checked against the preset's
@@ -132,10 +154,7 @@ class LLMEngine:
                  params: Any = None, seed: int = 0,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if tp not in (None, 1):
-            raise NotImplementedError(
-                f"tp={tp}: tensor-parallel serving needs the multi-GPU "
-                f"slice (ROADMAP item 6); this engine runs on one device")
+        self.tp = int(tp or _visible_devices(self.device))
         cfg = llama.config_for(preset)
         if max_seq_len is not None:
             cfg = llama.config_for(preset, max_seq_len=max_seq_len)
@@ -156,6 +175,13 @@ class LLMEngine:
             params = _to_device(params, self.device)
         else:
             params = params_from_numpy(params, device=self.device, cfg=cfg)
+        # tensor parallelism: this process is rank 0 of `tp`; it keeps its
+        # shards of the params and n_kv_heads / tp heads of every cache
+        self._tp = None
+        if self.tp > 1:
+            self._tp = llm_tp.TensorRanks(self.tp, self.device, cfg, params)
+            params = self._tp.params
+        self._kv_heads = cfg.n_kv_heads // self.tp
         self.params = params
         self._key_seed = seed ^ 0x5EED
         self._key_reseeds = 0
@@ -204,7 +230,21 @@ class LLMEngine:
 
     def _step_impl(self, params, cache, tokens, temperature):
         """decode_step (writing `cache` in place) + sampling: greedy where
-        temperature is 0, else Gumbel-max on logits / temperature."""
+        temperature is 0, else Gumbel-max on logits / temperature. With
+        tensor ranks, every rank runs the same decode_step (rank 0 sends
+        it first) and rank 0 samples from the full logits."""
+        if self._tp is not None:
+            from ray_tpu_torch.parallel.mesh import use_sharding
+
+            self._tp.step(cache, tokens)
+            try:
+                with use_sharding(self._tp.sharded):
+                    return self._sample(params, cache, tokens, temperature)
+            except BaseException as e:
+                raise self._tp.collective_failed(e) from e
+        return self._sample(params, cache, tokens, temperature)
+
+    def _sample(self, params, cache, tokens, temperature):
         if tokens.dim() == 1:  # decode path: device-resident [b]
             tokens = tokens[:, None]
         logits, cache = llama.decode_step(params, cache, tokens, self.cfg)
@@ -225,15 +265,36 @@ class LLMEngine:
             self._reseed_key()
             raise
 
-    def _insert_row(self, row_k, row_v, slot: int, length: int, start: int):
-        """Copy a freshly prefilled request's KV rows into `slot` of the
-        persistent cache and reset that row's depth/start."""
-        cache = self._decode_cache
-        n = row_k.shape[2]
-        cache["k"][:, slot, :n].copy_(row_k[:, 0])
-        cache["v"][:, slot, :n].copy_(row_v[:, 0])
-        cache["length"][slot] = length
-        cache["start"][slot] = start
+    def _dev(self, op: str, *args) -> None:
+        """A cache op (``llm_tp.CACHE_OPS``), on every tensor rank."""
+        if self._tp is not None:
+            self._tp.send(op, *args)
+        llm_tp.CACHE_OPS[op](*args)
+
+    def _new_cache(self, batch: int, max_len: int,
+                   per_row: bool = False) -> dict:
+        cache = llm_tp.new_cache(self.cfg, self.device, self._kv_heads, batch,
+                          max_len, per_row)
+        if self._tp is not None:
+            cache = self._tp.track(cache, batch, max_len, per_row)
+        return cache
+
+    def _insert_row(self, small: dict, slot: int, length: int, start: int):
+        """Copy a freshly prefilled request's KV rows (`small`'s) into
+        `slot` of the persistent cache and reset that row's depth/start."""
+        self._dev("insert", self._decode_cache, small, slot, length, start)
+
+    def _no_handoff(self):
+        if self._tp is not None:
+            raise ValueError(
+                f"a tensor-parallel engine (tp={self.tp}) holds each rank's "
+                "kv heads apart; it does not hand KV rows to another engine")
+
+    def shutdown(self) -> None:
+        """End the other tensor ranks and the process group (no-op at
+        tp=1)."""
+        if self._tp is not None:
+            self._tp.close()
 
     # ------------------------------------------------------------ serving
     async def ensure_started(self):
@@ -329,6 +390,7 @@ class LLMEngine:
         ``{"k", "v", "first", "bucket", "start"}``, tensors on this engine's
         device that no later step writes. Feed it to another engine's
         `generate_prefilled`."""
+        self._no_handoff()
         self._check_prompt(tokens)
         await self.ensure_started()
         req = _Request(list(tokens), 1, float(temperature),
@@ -347,6 +409,7 @@ class LLMEngine:
         prefilled by another engine (`prefill_only`'s payload). The first
         token was sampled there and streams out immediately; this engine
         never runs the prompt."""
+        self._no_handoff()
         await self.ensure_started()
         req = _Request(list(tokens), int(max_new_tokens),
                        float(temperature),
@@ -403,14 +466,9 @@ class LLMEngine:
     # ------------------------------------------------------- the hot path
     def _ensure_decode_cache(self):
         if self._decode_cache is None:
-            cache = llama.init_kv_cache(self.cfg, self.max_batch,
-                                        max_len=self.cfg.max_seq_len,
-                                        device=self.device)
             # per-row depths: each slot is an independent request
-            cache["length"] = torch.zeros((self.max_batch,),
-                                          dtype=torch.int32,
-                                          device=self.device)
-            self._decode_cache = cache
+            self._decode_cache = self._new_cache(
+                self.max_batch, self.cfg.max_seq_len, per_row=True)
 
     def _finish(self, i: int):
         s = self._slots[i]
@@ -427,9 +485,8 @@ class LLMEngine:
             self._admit_locked(req)
 
     def _small_cache(self, bucket: int, start: int) -> dict:
-        small = llama.init_kv_cache(self.cfg, 1, max_len=bucket,
-                                    device=self.device)
-        small["start"].fill_(start)
+        small = self._new_cache(1, bucket)
+        self._dev("fill", small, "start", start)
         return small
 
     def _prefill_step(self, req: _Request, small: dict,
@@ -508,7 +565,7 @@ class LLMEngine:
             # boundary before the first real token.
             skip = (start // self.prefill_chunk) * self.prefill_chunk
             if skip:
-                small["length"].fill_(skip)
+                self._dev("fill", small, "length", skip)
             self._slots[slot] = _Slot(req, emitted=-1, length=0)
             self._pending_prefills.append(_PendingPrefill(
                 req=req, slot=slot, prompts=prompts, small=small,
@@ -546,11 +603,8 @@ class LLMEngine:
         """Copy `matched` stored KV rows into the fresh per-request cache at
         absolute position `off` and advance its write cursor. The entry is
         only read."""
-        e_off = int(entry["start"])
-        for key_ in ("k", "v"):
-            small[key_][:, :, off:off + matched].copy_(
-                entry[key_][:, :, e_off:e_off + matched])
-        small["length"].fill_(off + matched)
+        self._dev("graft", small, entry["cache"], off, int(entry["start"]),
+                  matched)
         return small
 
     def _prefix_put(self, tokens: list, small, bucket: int):
@@ -565,7 +619,7 @@ class LLMEngine:
             return
         key = tuple(tokens[:block])
         self._prefix_store[key] = {
-            "tokens": list(tokens), "k": small["k"], "v": small["v"],
+            "tokens": list(tokens), "cache": small,
             "start": bucket - len(tokens), "bucket": bucket}
         self._prefix_store.move_to_end(key)
         while len(self._prefix_store) > self.prefix_cache_entries:
@@ -645,7 +699,7 @@ class LLMEngine:
             req.loop.call_soon_threadsafe(req.out.put_nowait, None)
             return
         try:
-            self._insert_row(small["k"], small["v"], slot, bucket, start)
+            self._insert_row(small, slot, bucket, start)
         except BaseException:
             # a half-done insert leaves the shared cache in an unknown
             # state: every active slot's KV is suspect, not just the new
@@ -669,6 +723,8 @@ class LLMEngine:
         next admission rebuilds from scratch (callers hold _mutex). The
         generator is re-seeded by the _step guard at the raise site."""
         err = RuntimeError("decode cache lost to a failed engine step")
+        if self._tp is not None:     # a dead follower names itself
+            err = self._tp.collective_failed(err)
         for s in self._slots:
             if s is not None:
                 s.req.loop.call_soon_threadsafe(s.req.out.put_nowait, err)
@@ -697,7 +753,7 @@ class LLMEngine:
         # a free or reserved row stays at depth 0: left to advance one slot
         # a step, it would pass the rope table after max_seq_len idle steps
         # (the reference then parks NaN K/V where the next request reads)
-        self._decode_cache["length"].mul_(self._live)
+        self._dev("mask", self._decode_cache, self._live)
         self._cur.copy_(nxt)  # stays on the device for the next step
         toks = nxt.tolist()   # host sync: this step's sampled tokens
         self.batches += 1
@@ -740,7 +796,7 @@ class LLMEngine:
                 "kv_handoffs": self.kv_handoffs,
                 "active_slots": sum(1 for s in self._slots
                                     if s is not None),
-                "tp": 1}
+                "tp": self.tp}
 
 
 class LlamaService:
@@ -839,13 +895,18 @@ class MultiplexedLoraService:
 def llm_app(preset: str = "debug", *, num_replicas: int = 1,
             max_ongoing_requests: int = 64, **engine_kw):
     """Build a Serve application hosting ``LlamaService`` (``engine_kw``
-    reaches ``LLMEngine``: ``device``, ``params``, ``max_batch``, ...)."""
+    reaches ``LLMEngine``: ``device``, ``params``, ``max_batch``, ``tp``,
+    ...). With ``tp`` on the card the replica leases ``tp`` GPUs: its
+    engine's ranks take one each."""
     from ray_tpu_torch.serve.deployment import deployment
 
+    tp = engine_kw.get("tp")
+    on_cards = tp and str(engine_kw.get("device", "cuda")) != "cpu"
     dep = deployment(
         LlamaService,
         num_replicas=num_replicas,
         max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options={"num_gpus": int(tp)} if on_cards else None,
     )
     return dep.bind(preset, **engine_kw)
 

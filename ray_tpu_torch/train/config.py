@@ -5,8 +5,8 @@ The port of ray_tpu/train/config.py. ``ScalingConfig.use_gpu`` (the
 reference's ``use_tpu``) leases each worker one ``"GPU"`` and defaults to
 True: a worker's ``get_device()`` is then the card, and a run on the CPU
 asks for it with ``use_gpu=False``. The **mesh axes** are laid over the
-workers, one rank each (``get_mesh()``); more than one GPU worker in a mesh
-needs per-lease card pinning (ROADMAP.md item 6) and raises.
+workers, one rank each (``get_mesh()``): each GPU worker's lease pins its
+own card, and the ranks join one NCCL group.
 """
 
 from __future__ import annotations

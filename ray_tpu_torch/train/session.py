@@ -102,21 +102,16 @@ class TrainContext:
         """The ``DeviceMesh`` of ScalingConfig.mesh (``{"data": -1}`` when
         None) across the workers, one rank each, built once. The first call
         starts the default process group (every worker must call it): gloo
-        for ``use_gpu=False``, NCCL for the card. GPU workers beyond one
-        need each lease pinned to its own card, which the port does not do
-        yet (ROADMAP.md item 6): every worker would open cuda:0, and NCCL
-        refuses two ranks on one card."""
+        for ``use_gpu=False``, NCCL for the card. Each GPU worker's lease
+        pins its own card, which is its process's ``cuda:0``; NCCL refuses
+        two ranks on one card, so workers sharing a card (fractional
+        leases) cannot form a mesh, and nothing falls back to gloo."""
         if self._mesh is not None:
             return self._mesh
         import torch.distributed as dist
 
         from ray_tpu_torch.parallel.mesh import build_mesh, init_process_group
 
-        if self.use_gpu and self.world_size > 1:
-            raise NotImplementedError(
-                "a mesh across GPU workers needs each lease pinned to its own "
-                "card (ROADMAP.md item 6); use num_workers=1 on one card, or "
-                "use_gpu=False for gloo CPU ranks")
         device = self.get_device()
         if not dist.is_initialized():
             init_process_group(self.world_size, self.rank,
@@ -153,9 +148,8 @@ class TrainContext:
         """The ``torch.device`` this worker trains on: ``cuda`` when the
         trainer asked for GPUs (``ScalingConfig(use_gpu=True)``, the
         default), raising when torch then sees no CUDA device; ``cpu``
-        only when the caller set ``use_gpu=False``. No card is pinned per
-        lease yet (ROADMAP.md item 6): on one card every GPU worker uses
-        the card."""
+        only when the caller set ``use_gpu=False``. The lease pins the
+        worker to its card, so ``cuda`` is that card."""
         import torch
 
         if not self.use_gpu:

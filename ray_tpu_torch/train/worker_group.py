@@ -5,9 +5,10 @@ train/v2/_internal/execution/worker_group/worker_group.py:97).
 The port of ray_tpu/train/worker_group.py: one worker per GPU lease
 (``ScalingConfig.use_gpu``), gang-placed via a placement group when there
 is more than one; groups of more than one worker join the host collective
-group (util/collective) for barriers and small allreduces. No card is
-pinned per lease yet (ROADMAP.md item 6), so on one card every GPU worker
-uses it. The worker actor is threaded (max_concurrency=2) so the
+group (util/collective) for barriers and small allreduces. Each GPU
+worker's lease pins its own card (CUDA_VISIBLE_DEVICES, set by the node
+manager's grant), so every worker's card is its process's cuda:0; workers
+leased a fraction of one card share it. The worker actor is threaded (max_concurrency=2) so the
 controller can drain results while the user loop runs.
 
 The process group a loop's ``get_mesh()`` starts across the workers

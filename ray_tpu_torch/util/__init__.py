@@ -1,8 +1,8 @@
 """Utility layer: actor pool, queue, metrics and the host tier of the
 collectives (ref analog: python/ray/util/). ``util.collective`` carries
 rendezvous, barriers and numpy allreduce/allgather/broadcast between
-processes over TCP; its device tier (``backend="nccl"``) is ROADMAP.md
-item 6."""
+processes over TCP; the device plane is the torch.distributed collectives
+inside the mesh (``ray_tpu_torch.parallel``)."""
 
 from __future__ import annotations
 

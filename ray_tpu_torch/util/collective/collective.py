@@ -2,9 +2,10 @@
 python/ray/util/collective/collective.py:120,258,423,472,531).
 
 Two planes, per SURVEY.md §2.5:
-  * **Device plane** — NCCL collectives between cards
-    (``torch.distributed``); not ported yet (ROADMAP.md item 6), so
-    ``backend="nccl"`` raises.
+  * **Device plane** — ``torch.distributed`` collectives inside the mesh
+    (``ray_tpu_torch.parallel``: NCCL between cards, gloo on the CPU),
+    as the reference's device plane is jax.lax collectives inside pjit;
+    this module takes no ``backend="nccl"``.
   * **Host plane** — this module (the port of ray_tpu/util/collective):
     rendezvous + CPU collectives between separate processes
     (actors/tasks), the analog of the reference's Gloo groups with GCS-KV
@@ -252,14 +253,10 @@ class CollectiveGroup:
 
 # ------------------------------------------------------------------ module API
 def _check_backend(backend: str) -> None:
-    if backend == "nccl":
-        raise NotImplementedError(
-            "backend='nccl' (collectives between cards) is not ported yet "
-            "(ROADMAP.md item 6); the host tier takes 'tcp', 'gloo' or "
-            "'auto'")
     if backend not in ("tcp", "gloo", "auto"):
-        raise ValueError(f"unsupported backend {backend!r}; the host tier "
-                         "takes 'tcp', 'gloo' or 'auto'")
+        raise ValueError(f"unsupported backend {backend!r}; the device data "
+                         "plane is torch.distributed collectives inside the "
+                         "mesh — use ray_tpu_torch.parallel for in-mesh ops")
 
 
 def init_collective_group(world_size: int, rank: int, backend: str = "tcp",

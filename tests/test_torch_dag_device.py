@@ -447,16 +447,19 @@ def test_in_mesh_allreduce_world_one_stays_on_device_torch():
 
 
 def test_in_mesh_over_processes_names_item_6():
-    """More than one rank in the in-mesh tier is NCCL between cards: not
-    ported, and it says which ROADMAP item brings it."""
-    from ray_tpu_torch.dag.collective import (_in_mesh_stack_gather,
-                                              _in_mesh_stack_reduce)
+    """More than one rank in the in-mesh tier: the reduction and the gather
+    run over the default process group (two gloo CPU ranks here), each
+    rank gets the reduction of every rank's value and the gather in rank
+    order, and no value is written."""
+    from torch_mesh_ranks import run_ranks
 
-    x = torch.arange(16, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _in_mesh_stack_reduce(x, "sum")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _in_mesh_stack_gather(x)
+    vals = [np.arange(6, dtype=np.float32) * (r + 1) - 4 for r in range(2)]
+    outs = run_ranks("in_mesh_stack", 2, vals, timeout=60)
+    for s, m, g, untouched in outs:
+        np.testing.assert_array_equal(s, vals[0] + vals[1])
+        np.testing.assert_array_equal(m, np.maximum(vals[0], vals[1]))
+        assert [t.tobytes() for t in g] == [v.tobytes() for v in vals]
+        assert untouched
 
 
 def test_in_mesh_equals_out_of_band_fallback_torch(local_cluster):

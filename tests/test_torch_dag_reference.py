@@ -9,8 +9,8 @@ DCN ring channels of a two-node cluster), ``tests/test_dag_observability.py``
 (channel stats, the GCS dag manager, the tick timeout's cursors, per-tick
 tracing) and ``tests/test_device_objects.py`` (the device plane's
 refusals). The tests ``torch_repoint.DESELECT`` leaves out run jax in their
-bodies (each has a torch twin in ``tests/test_torch_dag_device.py``) or
-shard an array over a mesh (ROADMAP.md item 6). test_dag's load-sensitive
+bodies (each has a torch twin in ``tests/test_torch_dag_device.py``, or,
+for the array sharded over a mesh, in ``tests/test_torch_dag_mesh.py``). test_dag's load-sensitive
 allreduce-fallback test runs as an entry of its own (SPLIT). Every
 selected test passes with no import of jax or ray_tpu in that process. The
 reference files stay untouched.

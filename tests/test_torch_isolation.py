@@ -211,6 +211,7 @@ def test_every_module_is_walked():
     assert {"ray_tpu_torch.ops.cuda.flash_attention",
             "ray_tpu_torch.models.llama", "ray_tpu_torch.parallel.spmd",
             "ray_tpu_torch.models.convert", "ray_tpu_torch.serve.llm",
+            "ray_tpu_torch.serve.llm_tp",
             "ray_tpu_torch.serve.request_context",
             "ray_tpu_torch.serve.handle", "ray_tpu_torch.serve.deployment",
             "ray_tpu_torch.serve.schema", "ray_tpu_torch.serve.admission",

@@ -692,11 +692,26 @@ def test_rl_learner_emits_step_waterfall_torch(monkeypatch):
     assert compiles[0]["event"] == "compile"
 
 
-def test_learner_devices_above_one_names_item_6():
+def test_learner_devices_above_one_names_item_6(port_cluster):
+    """learner_devices=2 on the CPU: the algorithm builds its learner over
+    two gloo ranks in one placement group, and trains through them."""
     from ray_tpu_torch.rl.impala import IMPALAConfig
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        IMPALAConfig(learner_devices=2, num_gpus_per_learner=0).build()
+    algo = IMPALAConfig(
+        learner_devices=2, num_gpus_per_learner=0, num_env_runners=1,
+        num_envs_per_runner=4, rollout_fragment_length=32,
+        train_batch_size=128, min_updates_per_iteration=2, seed=3).build()
+    try:
+        assert len(algo._learner_ranks) == 1
+        assert algo._learner_pg is not None
+        result = algo.train()
+        assert result["num_learner_updates"] >= 1
+        assert math.isfinite(result["learner/loss"])
+        where = port_cluster.get(algo._learner.placement.remote(),
+                                 timeout=60)
+        assert where["device"] == "cpu" and where["num_updates"] >= 1
+    finally:
+        algo.stop()
 
 
 def test_impala_learns_cartpole_torch(port_cluster):

@@ -352,11 +352,14 @@ def test_paths_not_ported_name_their_roadmap_item(cluster):
     assert rt.rl.PPOConfig is not None
     assert rt.rl.BCConfig is not None and rt.rl.CQLConfig is not None
     assert rt.tune.Tuner is not None and rt.data.build_corpus is not None
-    # the train runtime and the host collective tier are ported; the
-    # device tier of the collectives (NCCL between cards) is not
+    # the train runtime and the host collective tier are ported; like the
+    # reference's, the host tier takes no "nccl" (the device plane is the
+    # collectives inside the mesh), and there is no top-level collective
     assert rt.train.TorchTrainer is not None
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="unsupported backend"):
         rt.util.collective.init_collective_group(2, 0, backend="nccl")
+    with pytest.raises(ModuleNotFoundError):
+        rt.collective
 
 
 def test_head_main_refuses_the_dashboard_and_autoscaler():

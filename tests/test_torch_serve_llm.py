@@ -283,10 +283,21 @@ def test_a_new_event_loop_rebinds_the_engine():
 
 
 def test_unported_options_raise():
-    """Tensor-parallel serving needs the multi-GPU slice. (Adapter params
-    are ported: the LoRA tests below.)"""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tllm.LLMEngine("debug", tp=2, device="cpu")
+    """Tensor-parallel serving is ported: tp=2 on the CPU (a follower
+    process, gloo) serves the tp=1 engine's stream, and tp=None is one
+    device on the CPU. (tests/test_torch_serve_tp.py holds tp=2 against
+    the JAX package's.)"""
+    assert tllm.LLMEngine("debug", device="cpu").tp == 1
+    one = tllm.LLMEngine("debug", max_batch=2, device="cpu")
+    eng = tllm.LLMEngine("debug", tp=2, max_batch=2, device="cpu",
+                         params=one.params)
+    try:
+        assert _collect(eng, [5, 9, 11], max_new_tokens=5) == \
+            _collect(one, [5, 9, 11], max_new_tokens=5)
+        with pytest.raises(ValueError, match="does not hand KV rows"):
+            asyncio.run(eng.prefill_only([5, 9, 11]))
+    finally:
+        eng.shutdown()
 
 
 def test_llama_service_takes_a_string_payload():

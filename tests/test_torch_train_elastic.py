@@ -1,9 +1,11 @@
 """Twin of test_train.py::test_elastic_scaling_remesh_on_node_death on the
 port: a node of a two-node cluster dies mid-fit, and the
 ElasticScalingPolicy restarts the group at the surviving capacity from the
-latest checkpoint. Each group logs its world size (the reference logs its
-mesh's device count too: a mesh is ROADMAP.md item 6), and the loop waits
-on its log file rather than on fixed sleeps. In a file of its own: it runs
+latest checkpoint. Each group builds its mesh with ``get_mesh()`` (a gloo
+group over its workers, rebuilt after the shrink) and logs its world size
+and its mesh's size, as the reference logs its mesh's device count
+(tests/test_train.py:306); the loop waits on its log file rather than on
+fixed sleeps. In a file of its own: it runs
 its own multi-node cluster."""
 
 import threading
@@ -14,21 +16,24 @@ from ray_tpu_torch import train
 
 # ------------------------------------------------------------- elasticity
 def _elastic_loop(config):
-    """Twin body of test_train.py::_elastic_loop: each rank logs
-    (epoch, world size, rank) once its epoch is reported; a group of two
-    waits, once epoch 1 is logged, for the test to take a node down and
-    for the controller to tear the group down."""
+    """Twin body of test_train.py::_elastic_loop: each group builds its
+    mesh, runs one computation over it an epoch, and each rank logs
+    (epoch, world size, rank, mesh size) once its epoch is reported; a
+    group of two waits, once epoch 1 is logged, for the test to take a
+    node down and for the controller to tear the group down."""
     import os
     import tempfile
     import time
 
     import torch
+    import torch.distributed as dist
 
     from ray_tpu_torch import train
     from ray_tpu_torch.train.checkpoint import (Checkpoint, load_pytree,
                                                 save_pytree)
 
     ctx = train.get_context()
+    mesh = ctx.get_mesh()   # rebuilt per group: proves re-mesh works
     start = 0
     ckpt = train.get_checkpoint()
     if ckpt is not None:
@@ -36,8 +41,10 @@ def _elastic_loop(config):
             f"rank_{ctx.get_world_rank()}").path)["epoch"]) + 1
     killed = os.path.join(config["log_dir"], "killed")
     for epoch in range(start, 6):
+        # one real computation over the mesh an epoch
         x = torch.ones(8, device=ctx.get_device()) * (epoch + 1)
-        assert float(x.sum()) == 8.0 * (epoch + 1)
+        dist.all_reduce(x, group=mesh.get_group())
+        assert float(x.sum()) == 8.0 * (epoch + 1) * mesh.size()
         with tempfile.TemporaryDirectory() as d:
             save_pytree({"epoch": epoch}, d)
             train.report({"epoch": epoch,
@@ -45,7 +52,7 @@ def _elastic_loop(config):
                          checkpoint=Checkpoint(d))
         with open(os.path.join(config["log_dir"], "epochs.log"), "a") as f:
             f.write(f"{epoch},{ctx.get_world_size()},"
-                    f"{ctx.get_world_rank()}\n")
+                    f"{ctx.get_world_rank()},{mesh.size()}\n")
         if ctx.get_world_size() > 1 and epoch >= 1:
             deadline = time.monotonic() + 60
             while not os.path.exists(killed):
@@ -61,7 +68,8 @@ def test_elastic_scaling_on_node_death_torch(tmp_path):
     """Twin of test_train.py::test_elastic_scaling_remesh_on_node_death:
     a node dies mid-fit; the ElasticScalingPolicy restarts the group at
     the surviving capacity (2 -> 1 workers) from the checkpoint, with
-    epochs continuing (no reset to 0)."""
+    epochs continuing (no reset to 0), and each group's mesh has its
+    group's size (2, then 1)."""
     from ray_tpu_torch.cluster_utils import Cluster
 
     cluster = Cluster(head_resources={"CPU": 1.0})
@@ -73,7 +81,7 @@ def test_elastic_scaling_on_node_death_torch(tmp_path):
             # once both ranks of the group of two reported epoch 1
             deadline = time.monotonic() + 120
             while time.monotonic() < deadline:
-                if log_file.exists() and {"1,2,0", "1,2,1"} <= set(
+                if log_file.exists() and {"1,2,0,2", "1,2,1,2"} <= set(
                         log_file.read_text().splitlines()):
                     node_b.proc.kill()
                     (tmp_path / "killed").touch()
@@ -96,11 +104,14 @@ def test_elastic_scaling_on_node_death_torch(tmp_path):
         assert result.metrics["epoch"] == 5
         assert result.metrics["world_size"] == 1
         # rank 0's rows: after the shrink it is the group's one worker
-        rows = [r[:2] for r in (tuple(map(int, line.split(",")))
-                                for line in log_file.read_text().splitlines())
-                if r[2] == 0]
+        rows = [r[:2] + r[3:] for r in (
+            tuple(map(int, line.split(",")))
+            for line in log_file.read_text().splitlines()) if r[2] == 0]
         epochs = [r[0] for r in rows]
         worlds = [r[1] for r in rows]
+        meshes = [r[2] for r in rows]
+        assert meshes == worlds, rows
+        assert meshes[0] == 2 and meshes[-1] == 1, rows
         assert 2 in worlds and worlds[-1] == 1, rows
         first_shrunk = worlds.index(1)
         assert first_shrunk > 0

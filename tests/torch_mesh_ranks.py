@@ -340,6 +340,25 @@ def convert_roundtrip(rank, world, inp):
             "embed": tuple(local["embed"].shape)}
 
 
+def in_mesh_stack(rank, world, inp):
+    """dag.collective's multi-rank in-mesh ops on a group of every rank:
+    each rank's value ``inp[rank]`` -> (sum, max, the gather in rank
+    order, whether the value was left as it was)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.dag.collective import (_in_mesh_stack_gather,
+                                              _in_mesh_stack_reduce)
+
+    x = torch.from_numpy(np.asarray(inp[rank]))
+    keep = x.clone()
+    s = _in_mesh_stack_reduce(x, "sum")
+    m = _in_mesh_stack_reduce(x, "max")
+    g = _in_mesh_stack_gather(x)
+    return (s.numpy(), m.numpy(), [t.numpy() for t in g],
+            bool(torch.equal(x, keep)))
+
+
 def many(rank, world, inp):
     """Several programs on one group, one after another: [(name, inputs)]
     -> their results (one process start for all)."""
@@ -348,4 +367,5 @@ def many(rank, world, inp):
 
 PROGRAMS = {f.__name__: f for f in (train_llama, ring_group, moe_ep,
                                     pipeline, collectives,
-                                    convert_roundtrip, many)}
+                                    convert_roundtrip, in_mesh_stack,
+                                    many)}

@@ -171,7 +171,7 @@ DESELECT = {
             _JAX_BODY + " (jax.random batches in its batch_fn)", None,
             _TWINS + "test_lora_resume_restores_exact_trajectory_torch"),
         "test_elastic_scaling_remesh_on_node_death": Deselect(
-            _JAX_BODY + " (a jitted sum over each group's mesh)", "6",
+            _JAX_BODY + " (a jitted sum over each group's mesh)", None,
             "tests/test_torch_train_elastic.py::"
             "test_elastic_scaling_on_node_death_torch"),
     },
@@ -244,8 +244,9 @@ DESELECT = {
             _DAG_TWINS
             + "test_device_object_free_releases_holder_memory_torch"),
         "test_sharded_array_device_transfer": Deselect(
-            _JAX_BODY + " (an array sharded over a 2-device mesh)", "6",
-            None),
+            _JAX_BODY + " (an array sharded over a 2-device mesh)", None,
+            "tests/test_torch_dag_mesh.py::"
+            "test_sharded_tensor_device_transfer_torch"),
         "test_device_object_lost_when_holder_dies": Deselect(
             _JAX_BODY + " (the actor returns a jnp array)", None,
             _DAG_TWINS + "test_device_object_lost_when_holder_dies_torch"),

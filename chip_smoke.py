@@ -1049,7 +1049,7 @@ def phase_ring_410m() -> dict:
             "flash_bwd_dkv": n * (n + 1) // 2}
     bad = {c: e for c, errs in checks.items() for e in errs.values()
            if not e <= 1.0}
-    ok = not bad and launches == want
+    ok = not bad and launches == want and traced["device_busy_ms"] > 0
     emit("ring_410m", shards=n, shape=[8, 2048, 16, 16, 64], dtype="bf16",
          checks=checks, tolerance={
              "bf16": {"out_max_abs": RING_BF16_OUT_ABS,
@@ -1095,6 +1095,213 @@ torch.cuda.synchronize()
 dist.destroy_process_group()
 sys.exit(0 if ok else 3)
 """
+
+
+TRACE_SESSIONS = 80       # profiler sessions an arm of --trace-windows
+# --trace-windows' arms: what the window holds before the traced call
+TRACE_ARMS = {"none": "nothing", "idle": "PROFILE_SLACK_S of host sleep",
+              "busy": "a ~0.1 s spin kernel on the card (torch.cuda._sleep)",
+              "warm": "profile_call's: PROFILE_WARMUP_KERNELS tiny spin "
+                      "kernels, then PROFILE_SLACK_S of host sleep"}
+
+
+def _trace_windows_child() -> None:
+    """--trace-windows' measuring process (KINETO_LOG_LEVEL=0, so kineto
+    logs its record counts on stderr): the ring call of ring_410m traced
+    TRACE_SESSIONS times in each arm of TRACE_ARMS, interleaved, then a
+    one-rank NCCL group made and destroyed as mesh_train_410m does, then
+    the arms again. One JSON row a session on stdout (the ring's kernels
+    traced, and the first ring kernel's start less its launch's start, in
+    the trace's clock), a MARK line on stderr before it."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.parallel.mesh import free_address, init_process_group
+
+    q, k, v, do = _inputs(8, 2048, 2048, 16, 16, 64, torch.bfloat16, 7)
+    shards, dos = _leaves((q, k, v), RING_SHARDS), list(do.chunk(
+        RING_SHARDS, 1))
+    _ring_call(ra, shards, dos)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    spin = int(2e8)         # cycles: ~0.1 s at the H100's ~2 GHz
+
+    def session(arm: str, tag: str) -> None:
+        print(f"MARK {tag}", file=sys.stderr, flush=True)
+        wall_less_mono = time.time_ns() - time.monotonic_ns()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if arm == "warm":
+                for _ in range(PROFILE_WARMUP_KERNELS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            if arm in ("idle", "warm"):
+                time.sleep(PROFILE_SLACK_S)
+            elif arm == "busy":
+                torch.cuda._sleep(spin)
+            with torch.profiler.record_function("traced_call"):
+                _ring_call(ra, shards, dos)
+            torch.cuda.synchronize()
+        events = prof.events()
+        call = next(ev for ev in events if ev.name == "traced_call")
+        kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and "spin" not in ev.name.lower()]
+        launches = [ev for ev in events if ev.device_type == DeviceType.CPU
+                    and "LaunchKernel" in ev.name
+                    and ev.time_range.start >= call.time_range.start]
+        lead = (min(ev.time_range.start for ev in kernels)
+                - min(ev.time_range.start for ev in launches)
+                if kernels and launches else None)
+        print(json.dumps({"session": tag, "arm": arm,
+                          "kernels": len(kernels), "first_lead_us": lead,
+                          "t": time.monotonic(),
+                          "wall_less_mono_ms": wall_less_mono / 1e6}),
+              flush=True)
+
+    for after in ("", "_after_nccl"):
+        if after:
+            init_process_group(1, 0, free_address())
+            t = torch.ones(4, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            dist.destroy_process_group()
+        for i in range(TRACE_SESSIONS):
+            for arm in TRACE_ARMS:
+                session(arm, f"{arm}{after}{i}")
+
+
+def phase_trace_windows() -> dict:
+    """F1's measurement: how often a trace of a short call loses kernels,
+    in each arm of _trace_windows_child, before and after an NCCL group,
+    against kineto's own count of the records it dropped as outside the
+    window ("Out-of-range"), with the spread of the first kernel's start
+    less its launch's (negative: the card's timeline mapped early). A
+    session is short when it holds fewer kernels than the most any session
+    held."""
+    env = {**os.environ, "KINETO_LOG_LEVEL": "0"}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trace-windows-child"],
+        env=env, capture_output=True, text=True, timeout=1500)
+    if proc.returncode:
+        raise RuntimeError(proc.stderr[-2000:])
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"session"')]
+    dropped, cur = {}, None
+    for line in proc.stderr.splitlines():
+        if line.startswith("MARK "):
+            cur = line.split()[1]
+        elif cur and "Out-of-range = " in line:
+            dropped[cur] = int(re.search(r"Out-of-range = (\d+)",
+                                         line).group(1))
+    full = max(r["kernels"] for r in rows)
+    t0 = rows[0]["t"]
+    offsets = [r["wall_less_mono_ms"] for r in rows]
+    arms = {}
+    for arm in TRACE_ARMS:
+        for after in ("", "_after_nccl"):
+            mine = [r for r in rows if r["arm"] == arm
+                    and r["session"].startswith(arm + after)
+                    and r["session"][len(arm + after):].isdigit()]
+            short = [r for r in mine if r["kernels"] < full]
+            leads = sorted(r["first_lead_us"] for r in mine
+                           if r["first_lead_us"] is not None)
+            arms[arm + after] = {
+                "sessions": len(mine), "short": len(short),
+                "kernels_missing": sum(full - r["kernels"] for r in short),
+                "kineto_out_of_range": sum(dropped.get(r["session"], 0)
+                                           for r in mine),
+                "first_lead_us_min_median_max": (
+                    [leads[0], leads[len(leads) // 2], leads[-1]]
+                    if leads else None),
+                "short_sessions": [
+                    (r["session"], r["kernels"], r["first_lead_us"],
+                     round(r["t"] - t0, 2), r["wall_less_mono_ms"])
+                    for r in short][:10]}
+    res = {"ring_kernels_a_session": full, "slack_s": PROFILE_SLACK_S,
+           "arms_hold": TRACE_ARMS, "arms": arms,
+           # the host's wall clock less its monotonic clock over the run:
+           # a step or slew of the wall clock moves it
+           "wall_less_mono_ms_first_min_max_last": [
+               offsets[0], min(offsets), max(offsets), offsets[-1]],
+           "seconds": rows[-1]["t"] - t0}
+    emit("trace_windows", **res, ok=True)
+    return res
+
+
+TP_CARDS_PROMPTS = [([5, 9, 11, 42, 7], 8),
+                    ([1 + i % 251 for i in range(100)], 6)]
+
+
+def phase_tp_cards() -> dict:
+    """Tensor-parallel engines over NCCL across two cards (four-card
+    machine): two tp=2 engines and a tp=1 engine in this process, the
+    debug preset in f32 with TF32 off. Each engine's greedy streams, and
+    those of every handoff route (tp=2 -> tp=2, tp=2 -> tp=1,
+    tp=1 -> tp=2), equal the tp=1 engine's own; the tp=2 payload equals
+    the tp=1 one to 1e-5; one engine's shutdown leaves the other
+    serving."""
+    import asyncio
+
+    import torch
+
+    from ray_tpu_torch.serve import llm
+
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError("--tp-cards needs two cards (NCCL refuses two "
+                           "ranks on one)")
+    kw = dict(max_batch=4, max_seq_len=256, prompt_buckets=(32, 128),
+              prefill_chunk=64)
+    with tf32_off(), f32_presets(llm.llama):
+        t0 = time.perf_counter()
+        one = llm.LLMEngine("debug", tp=1, **kw)
+        a = llm.LLMEngine("debug", tp=2, params=one.params, **kw)
+        b = llm.LLMEngine("debug", tp=2, params=one.params, **kw)
+        build_s = time.perf_counter() - t0
+
+        async def route(src, dst, prompt, new):
+            h = await src.prefill_only(prompt)
+            return [t async for t in dst.generate_prefilled(
+                prompt, h, max_new_tokens=new)]
+
+        try:
+            want = [collect(one, p, max_new_tokens=n)
+                    for p, n in TP_CARDS_PROMPTS]
+            equal = {"tp2_generate": [collect(a, p, max_new_tokens=n)
+                                      for p, n in TP_CARDS_PROMPTS] == want}
+            route_s = {}
+            for name, (src, dst) in {"tp2_to_tp2": (a, b),
+                                     "tp2_to_tp1": (a, one),
+                                     "tp1_to_tp2": (one, b)}.items():
+                t0 = time.perf_counter()
+                equal[name] = [asyncio.run(route(src, dst, p, n))
+                               for p, n in TP_CARDS_PROMPTS] == want
+                route_s[name] = time.perf_counter() - t0
+            prompt = TP_CARDS_PROMPTS[1][0]
+            got = asyncio.run(a.prefill_only(prompt))
+            ref = asyncio.run(one.prefill_only(prompt))
+            diff = max(float((got[k] - ref[k]).abs().max())
+                       for k in ("k", "v"))
+            heads = int(got["k"].shape[3])
+            b.shutdown()
+            prompt, new = TP_CARDS_PROMPTS[0]
+            equal["after_other_shutdown"] = collect(
+                a, prompt, max_new_tokens=new) == want[0]
+        finally:
+            a.shutdown()
+            b.shutdown()
+    ok = all(equal.values()) and diff <= 1e-5 \
+        and heads == one.cfg.n_kv_heads
+    res = {"cards": torch.cuda.device_count(), "build_s": build_s,
+           "streams_equal": equal, "routes_s": route_s,
+           "payload_max_abs_diff": diff, "payload_kv_heads": heads}
+    emit("tp_cards", **res, ok=ok)
+    if not ok:
+        raise AssertionError("tp_cards failed its checks")
+    return res
 
 
 def phase_gloo_cuda() -> dict:
@@ -1143,29 +1350,66 @@ def profile_step(step, state, batch, phase: str = "profile_410m") -> dict:
     return profile_call(lambda: step(state, batch), phase)
 
 
+# idle seconds inside a trace window before and after the traced call
+PROFILE_SLACK_S = 0.5
+# tiny spin kernels (torch.cuda._sleep) launched first in a trace window:
+# kineto drops the first records of a session as out of its window, up to
+# 11 a session in the whole script's later phases (PERF.md, F1); these are
+# the ones it drops, and no trace counts them
+PROFILE_WARMUP_KERNELS = 64
+
+
 def profile_call(fn, phase: str, op_group=None) -> dict:
     """Device time by kernel group over one traced call of fn, and the
     card's idle share of the call's wall time; emitted as `phase`. With
     `op_group(op_event) -> label or None`, the trace also records input
     shapes, and the device time of the kernels each operator launched
-    itself is summed by label into "ops_ms"."""
+    itself is summed by label into "ops_ms".
+
+    A trace must hold what the call launched: every call profiled here
+    launches kernels, so a trace with none fails the phase, naming it, and
+    so does one whose flash kernels differ in number from the launches
+    the flash wrappers counted during the call.
+
+    Kineto drops a kernel record whose timestamp falls outside the trace
+    window ("Out-of-range" in its record counts). On the H100 machines it
+    drops the first records of a session (up to 11 in the script's later
+    phases) and now and then maps a session's kernels ms early (PERF.md,
+    F1). So the window opens with PROFILE_WARMUP_KERNELS spin kernels,
+    which no trace counts, then PROFILE_SLACK_S idle before the call, and
+    closes PROFILE_SLACK_S after it. The wall time and the idle share are
+    read over the call alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.ops.cuda import flash_attention as fa
+
     torch.cuda.synchronize()
+    counted = sum(fa.launches.values())
+    # kineto's record counts follow on stderr with KINETO_LOG_LEVEL=0
+    print(f"MARK {phase}", file=sys.stderr, flush=True)
+    wall_less_mono_ms = (time.time_ns() - time.monotonic_ns()) / 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=op_group is not None) as prof:
+        for _ in range(PROFILE_WARMUP_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SLACK_S)
         t0 = time.perf_counter()
-        fn()
+        with torch.profiler.record_function("profile_call"):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_SLACK_S)
+    counted = sum(fa.launches.values()) - counted
     by_name: dict[str, list] = {}
     for ev in prof.events():
         # kernels only: operator rows and annotations (such as the
         # optimizer's) repeat the device time of the kernels under them
         if (ev.device_type != DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)):
+                or getattr(ev, "is_user_annotation", False)
+                or "spin_kernel" in ev.name):       # the window's warm-up
             continue
         row = by_name.setdefault(ev.name, [0.0, 0])
         row[0] += ev.device_time_total / 1e3
@@ -1188,10 +1432,38 @@ def profile_call(fn, phase: str, op_group=None) -> dict:
                 ops[label] = ops.get(label, 0.0) + (
                     ev.self_device_time_total / 1e3)
         res["ops_ms"] = ops
-    emit(phase, **res, launches_traced=sum(n for _, _, n in rows),
+    traced = sum(n for _, n in by_name.values())
+    flash_traced = sum(n for name, (_, n) in by_name.items()
+                       if _kernel_group(name) == "flash attention (ours)")
+    ok = traced > 0 and flash_traced == counted
+    # the first kernel's start less the first launch's, in the trace's
+    # clock: negative when the card's timeline is mapped early
+    events = prof.events()
+    call = next(ev for ev in events if ev.name == "profile_call"
+                and ev.device_type == DeviceType.CPU)
+    kernel0 = min((ev.time_range.start for ev in events
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.name in by_name), default=None)
+    launch0 = min((ev.time_range.start for ev in events
+                   if "LaunchKernel" in ev.name
+                   and ev.time_range.start >= call.time_range.start),
+                  default=None)
+    emit(phase, **res, launches_traced=traced,
+         flash_launches_traced=flash_traced, flash_launches_counted=counted,
+         window_slack_s=PROFILE_SLACK_S,
+         window_warmup_kernels=PROFILE_WARMUP_KERNELS,
+         first_kernel_less_first_launch_us=(
+             None if kernel0 is None or launch0 is None
+             else kernel0 - launch0),
+         wall_less_mono_ms=wall_less_mono_ms,
          top=[{"kernel": name[:90], "ms": ms, "calls": n}
-              for name, ms, n in rows[:12]])
-    return res
+              for name, ms, n in rows[:12]], ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"{phase}: the trace caught {traced} kernel launches, "
+            f"{flash_traced} of them flash, while the flash wrappers counted "
+            f"{counted} launches in the traced call")
+    return {**res, "launches_traced": traced}
 
 
 # ----------------------------------------------------------------- serving
@@ -5506,6 +5778,18 @@ def main(argv: list[str]) -> int:
     if argv == ["--gloo-cuda"]:
         phase_device()
         phase_gloo_cuda()
+        return 0
+    if argv == ["--trace-windows-child"]:
+        _trace_windows_child()
+        return 0
+    if argv == ["--trace-windows"]:
+        phase_device()
+        phase_build()
+        phase_trace_windows()
+        return 0
+    if argv == ["--tp-cards"]:
+        phase_device()
+        phase_tp_cards()
         return 0
     if argv[:1] == ["--compare"] and len(argv) == 2:
         phase_device()

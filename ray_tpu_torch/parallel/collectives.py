@@ -34,11 +34,13 @@ import torch.distributed as dist
 
 
 def group_size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    return 1 if group is None else group.size()
 
 
 def group_rank(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    # the group's own rank: a group of its own (mesh.new_group) is unknown
+    # to the default group's registry
+    return 0 if group is None else group.rank()
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -196,7 +198,7 @@ class _Ppermute(torch.autograd.Function):
 
 
 def _trivial(group) -> bool:
-    return group is None or dist.get_world_size(group) == 1
+    return group is None or group.size() == 1
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

@@ -18,7 +18,10 @@ collectives are explicit (``parallel/collectives.py``):
 
 ``build_mesh`` runs over the default process group: NCCL for the card, gloo
 only when the caller asks for the CPU (``device="cpu"``). A CUDA mesh over a
-gloo group raises; nothing falls back.
+gloo group raises; nothing falls back. A program that drives ranks of its
+own inside a process that may hold other such programs (a tensor-parallel
+engine, an IMPALA learner) builds a group of its own instead
+(``new_group``, the same backends) and a ``GroupMesh`` over it.
 """
 
 from __future__ import annotations
@@ -91,18 +94,87 @@ def init_process_group(world_size: int, rank: int, address: str,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def new_group(world: int, rank: int, address: str, device=None,
+              timeout_s: float = 300.0):
+    """A process group of ``world`` ranks apart from the default group ->
+    (group, store). Rank 0 hosts the group's store at ``address``
+    (``tcp://host:port``), the others connect there. NCCL for the card
+    (``device=None`` means CUDA), gloo for ``device="cpu"``. Any number of
+    such groups can live in one process, beside a default group or
+    without one; pass the group to every collective (``group=``, with
+    ``group_src`` for a root), and end it with ``group.shutdown()`` (the
+    store goes with its last reference)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    device_type = _device_type(device)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    host, port = address.removeprefix("tcp://").rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, rank == 0, timeout)
+    prefix = dist.PrefixStore("ray_tpu_torch_group", store)
+    group = dist.ProcessGroup(prefix, rank, world)
+    kinds = dist.ProcessGroup.BackendType
+    if device_type == "cuda":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        backend, kind = dist.ProcessGroupNCCL(prefix, rank, world, opts), \
+            kinds.NCCL
+        bound = torch.device("cuda", torch.cuda.current_device())
+    else:
+        backend, kind = dist.ProcessGroupGloo(prefix, rank, world,
+                                              timeout), kinds.GLOO
+        bound = torch.device("cpu")
+    group._set_default_backend(kind)
+    group._register_backend(bound, kind, backend)
+    return group, store
+
+
+class GroupMesh:
+    """A mesh over a process group of its own (``new_group``): the
+    reference's named axes, at most one of them larger than 1 and spanning
+    the whole group. What a tensor-parallel engine's ranks run its decode
+    step over; the same face as the ``DeviceMesh`` a ``Sharded`` context
+    reads (names, shape, an axis's group and this rank's index on it)."""
+
+    def __init__(self, group, axes: Mapping[str, int]):
+        names, sizes = _resolve_sizes(axes, group.size())
+        if sum(n > 1 for n in sizes) > 1:
+            raise ValueError(f"a GroupMesh spans its group on one axis; "
+                             f"{dict(zip(names, sizes))} has several")
+        self.group = group
+        self.mesh_dim_names = tuple(names)
+        self.shape = tuple(sizes)
+
+    def size(self, mesh_dim: int) -> int:
+        return self.shape[mesh_dim]
+
+    def _axis_size(self, axis: str) -> int:
+        return self.shape[self.mesh_dim_names.index(axis)]
+
+    def get_group(self, axis: str):
+        if self._axis_size(axis) == 1:
+            raise ValueError(f"axis {axis!r} has size 1: no group")
+        return self.group
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.group.rank() if self._axis_size(axis) > 1 else 0
+
+
 class CommandGroup:
-    """The default process group of ``world`` ranks that rank 0 drives:
-    rank 0 sends each command (any picklable object) and the tensors it
-    needs, and ranks 1..world-1 wait on them. A tensor-parallel engine's
-    followers (``serve/llm_tp.py``) and an IMPALA learner's ranks
-    (``rl/impala.py``) are such groups."""
+    """A process group of ``world`` ranks of its own (``new_group``) that
+    rank 0 drives: rank 0 sends each command (any picklable object) and the
+    tensors it needs, and ranks 1..world-1 wait on them. A
+    tensor-parallel engine's followers (``serve/llm_tp.py``) and an IMPALA
+    learner's ranks (``rl/impala.py``) are such groups; several live in
+    one process at once, and none touches the default group."""
 
     def __init__(self, world: int, rank: int, address: str, device,
                  timeout_s: float = 300.0):
         self.world, self.rank, self.device = world, rank, device
-        init_process_group(world, rank, address, device=device,
-                           timeout_s=timeout_s)
+        self.group, self._store = new_group(world, rank, address, device,
+                                            timeout_s)
 
     def objects(self, obj=None):
         """Rank 0's picklable ``obj`` on every rank (the others pass
@@ -111,19 +183,21 @@ class CommandGroup:
 
         box = [obj]
         dist.broadcast_object_list(
-            box, src=0,
+            box, group=self.group, group_src=0,
             device=self.device if self.device.type == "cuda" else None)
         return box[0]
 
     def broadcast(self, t=None, shape=None, dtype=None):
         """Rank 0's tensor ``t`` on every rank; the others give its shape
-        and dtype."""
+        and dtype (or ``t`` to receive into)."""
         import torch
         import torch.distributed as dist
 
-        t = (t.detach().contiguous() if self.rank == 0 else
-             torch.empty(shape, dtype=dtype, device=self.device))
-        dist.broadcast(t, src=0)
+        if t is None:
+            t = torch.empty(shape, dtype=dtype, device=self.device)
+        elif self.rank == 0:
+            t = t.detach().contiguous()
+        dist.broadcast(t, group=self.group, group_src=0)
         return t
 
     def scatter(self, t, axis: int, shape, dtype):
@@ -137,14 +211,30 @@ class CommandGroup:
         out = torch.empty(local, dtype=dtype, device=self.device)
         parts = ([p.contiguous() for p in t.chunk(self.world, dim=axis)]
                  if self.rank == 0 else None)
-        dist.scatter(out, parts, src=0)
+        dist.scatter(out, parts, group=self.group, group_src=0)
         return out
 
-    def close(self) -> None:
+    def gather(self, t, axis: int):
+        """Every rank's ``t`` joined along ``axis`` in rank order (on every
+        rank)."""
+        import torch
         import torch.distributed as dist
 
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=axis)
+
+    def all_reduce(self, t):
+        """The sum of every rank's ``t``, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def close(self) -> None:
+        self.group.shutdown()
+        self._store = None
 
 
 def _resolve_sizes(axes: Mapping[str, int], n: int

@@ -191,29 +191,25 @@ class _LearnerRanks(CommandGroup):
     def mean(self, grads, aux: dict):
         """The gradients and the loss terms averaged over the ranks."""
         import torch
-        import torch.distributed as dist
 
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
         flat /= self.world
         out, i = [], 0
         for g in grads:
             out.append(flat[i:i + g.numel()].view_as(g))
             i += g.numel()
         names = sorted(aux)
-        terms = torch.stack([aux[k].float() for k in names])
-        dist.all_reduce(terms)
+        terms = self.all_reduce(torch.stack([aux[k].float() for k in names]))
         terms /= self.world
         return out, dict(zip(names, terms))
 
     def sync(self, leaves) -> None:
         """Rank 0's params into every rank's (in place)."""
         import torch
-        import torch.distributed as dist
 
         with torch.no_grad():
             for t in leaves:
-                dist.broadcast(t.data, src=0)
+                self.broadcast(t.data)
 
 
 def _learner_state(module_cfg, cfg, seed: int):

@@ -30,8 +30,10 @@ rows cross from one to the other as one tick of a device edge
 device each (``serve/llm_tp.py``): this process is rank 0 and starts the
 others; ``tp=None`` takes every card the process sees, as the reference
 takes every local device (1 in a runtime worker whose lease holds no GPU:
-``llm_app`` without ``tp`` leases none). A tensor-parallel engine does not hand KV rows to
-another engine (``prefill_only``, ``generate_prefilled``).
+``llm_app`` without ``tp`` leases none). Each tensor-parallel engine owns a
+process group of its own, so several live in one process. A KV handoff
+(``prefill_only`` -> ``generate_prefilled``) carries every kv head at any
+``tp``, so engines of any two ``tp`` hand rows to each other.
 """
 
 from __future__ import annotations
@@ -284,15 +286,9 @@ class LLMEngine:
         `slot` of the persistent cache and reset that row's depth/start."""
         self._dev("insert", self._decode_cache, small, slot, length, start)
 
-    def _no_handoff(self):
-        if self._tp is not None:
-            raise ValueError(
-                f"a tensor-parallel engine (tp={self.tp}) holds each rank's "
-                "kv heads apart; it does not hand KV rows to another engine")
-
     def shutdown(self) -> None:
-        """End the other tensor ranks and the process group (no-op at
-        tp=1)."""
+        """End the other tensor ranks and the engine's process group
+        (no-op at tp=1); other engines of the process keep serving."""
         if self._tp is not None:
             self._tp.close()
 
@@ -388,9 +384,9 @@ class LLMEngine:
         """Run ONLY the prefill (chunked as configured, prefix reuse
         included) and return the KV handoff payload instead of decoding:
         ``{"k", "v", "first", "bucket", "start"}``, tensors on this engine's
-        device that no later step writes. Feed it to another engine's
-        `generate_prefilled`."""
-        self._no_handoff()
+        device that no later step writes, with every kv head whatever this
+        engine's ``tp`` (the ranks' heads gathered). Feed it to another
+        engine's `generate_prefilled`, at any ``tp``."""
         self._check_prompt(tokens)
         await self.ensure_started()
         req = _Request(list(tokens), 1, float(temperature),
@@ -408,8 +404,12 @@ class LLMEngine:
         """Async generator over decode-only generation from KV rows
         prefilled by another engine (`prefill_only`'s payload). The first
         token was sampled there and streams out immediately; this engine
-        never runs the prompt."""
-        self._no_handoff()
+        never runs the prompt. The payload holds every kv head; at ``tp``
+        above 1 each rank takes its own."""
+        heads = handoff["k"].shape[llm_tp.KV_HEAD_AXIS]
+        if heads != self.cfg.n_kv_heads:
+            raise ValueError(f"the handoff holds {heads} kv heads; this "
+                             f"model has {self.cfg.n_kv_heads}")
         await self.ensure_started()
         req = _Request(list(tokens), int(max_new_tokens),
                        float(temperature),
@@ -627,7 +627,12 @@ class LLMEngine:
 
     def _admit_prefilled_locked(self, req: _Request, slot: int):
         h = req.prefilled
-        kv = {"k": h["k"].to(self.device), "v": h["v"].to(self.device)}
+        k, v = h["k"].to(self.device), h["v"].to(self.device)
+        if self._tp is None:
+            kv = {"k": k, "v": v}
+        else:       # each rank's heads into its twin of a fresh cache
+            kv = self._new_cache(1, k.shape[2])
+            self._tp.scatter_rows(kv, k, v)
         self.kv_handoffs += 1
         self._finish_prefill(req, slot, kv, int(h["first"]),
                              int(h["bucket"]), int(h["start"]),
@@ -678,10 +683,12 @@ class LLMEngine:
         if req.handoff_out:
             # prefill side of a handoff: the result IS the KV payload; the
             # decoding engine grafts it via generate_prefilled. No slot, no
-            # insert, no decode.
+            # insert, no decode. Every kv head: the ranks' gathered
+            k, v = ((small["k"], small["v"]) if self._tp is None
+                    else self._tp.gather_rows(small))
             req.loop.call_soon_threadsafe(
                 req.out.put_nowait,
-                {"k": small["k"], "v": small["v"], "first": int(first),
+                {"k": k, "v": v, "first": int(first),
                  "bucket": int(bucket), "start": int(start)})
             req.loop.call_soon_threadsafe(req.out.put_nowait, None)
             return
@@ -900,15 +907,21 @@ def llm_app(preset: str = "debug", *, num_replicas: int = 1,
     engine's ranks take one each."""
     from ray_tpu_torch.serve.deployment import deployment
 
-    tp = engine_kw.get("tp")
-    on_cards = tp and str(engine_kw.get("device", "cuda")) != "cpu"
     dep = deployment(
         LlamaService,
         num_replicas=num_replicas,
         max_ongoing_requests=max_ongoing_requests,
-        ray_actor_options={"num_gpus": int(tp)} if on_cards else None,
+        ray_actor_options=_tp_lease(engine_kw),
     )
     return dep.bind(preset, **engine_kw)
+
+
+def _tp_lease(engine_kw: dict) -> dict | None:
+    """A replica's actor options for its engine's ``tp``: ``tp`` GPUs on
+    the card (one a rank), none on the CPU or without ``tp``."""
+    tp = engine_kw.get("tp")
+    on_cards = tp and str(engine_kw.get("device", "cuda")) != "cpu"
+    return {"num_gpus": int(tp)} if on_cards else None
 
 
 def lora_llm_app(preset: str = "debug", *, num_replicas: int = 1,
@@ -1142,7 +1155,9 @@ def disagg_llm_app(preset: str = "debug", *,
     prefill pool and hands its KV rows over a device-channel edge. Pool
     sizes default from RAYT_SERVE_PREFILL_REPLICAS /
     RAYT_SERVE_DECODE_REPLICAS (1 each). Both pools build identical
-    weights (same preset + seed), so KV rows graft across them."""
+    weights (same preset + seed), so KV rows graft across them. With
+    ``tp`` on the card each replica of either pool leases ``tp`` GPUs, as
+    ``llm_app``'s does."""
     from ray_tpu_torch.serve.deployment import deployment
 
     if prefill_replicas is None:
@@ -1151,9 +1166,11 @@ def disagg_llm_app(preset: str = "debug", *,
         decode_replicas = _pool_size(DECODE_REPLICAS_ENV, 1)
     prefill_dep = deployment(
         PrefillWorker, num_replicas=prefill_replicas,
-        max_ongoing_requests=max_ongoing_requests)
+        max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options=_tp_lease(engine_kw))
     decode_dep = deployment(
         DecodeLlamaService, num_replicas=decode_replicas,
-        max_ongoing_requests=max_ongoing_requests)
+        max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options=_tp_lease(engine_kw))
     return decode_dep.bind(prefill_dep.bind(preset, **engine_kw),
                            preset, **engine_kw)

@@ -6,9 +6,12 @@ The port runs one process per rank. Rank 0 is the engine's own process: it
 owns the asyncio loop, admission, the prefill chunks, the prefix store, the
 slot ring and sampling. Ranks 1..tp-1 are follower processes the engine
 starts (``python -m ray_tpu_torch.serve.llm_tp``) and owns, each pinned to
-one card of the engine's lease (``CUDA_VISIBLE_DEVICES``). The ranks form
-the default process group (NCCL for the card, gloo for ``device="cpu"``)
-and a ``{"data": 1, "tensor": tp}`` mesh over it. Rank 0 hands each rank
+one card of the engine's lease (``CUDA_VISIBLE_DEVICES``). The ranks form a
+process group of the engine's own (``parallel.mesh.new_group``: its own
+store and address; NCCL for the card, gloo for ``device="cpu"``) and a
+``{"data": 1, "tensor": tp}`` mesh over it (``GroupMesh``). The default
+process group is never touched, so several such engines, and a training
+mesh, live in one process at once. Rank 0 hands each rank
 the full params once; every rank keeps its shards by
 ``param_logical_axes`` (and ``lora_logical_axes`` for an adapter subtree)
 and a KV cache of ``n_kv_heads / tp`` heads (``kv_cache_logical_axes``).
@@ -20,6 +23,11 @@ every rank then runs the same ``llama.decode_step`` under the mesh's
 sharding context (its collectives pair up across the ranks). Rank 0 names
 each cache by a handle (``_Cache.hid``); a follower keeps its own twin of
 each, and drops it when rank 0's is collected.
+
+A KV handoff (``prefill_only`` / ``generate_prefilled``) carries every kv
+head, in the tp=1 layout: rank 0 gathers the ranks' heads of a finished
+prefill over the group (``TensorRanks.gather_rows``), and scatters a
+payload's heads to the ranks before it is inserted (``scatter_rows``).
 
 A follower that dies fails the engine: every later op raises an error that
 names it, checked before each step, and a step that a dead peer broke
@@ -114,6 +122,9 @@ def mask(cache: dict, live) -> None:
 
 CACHE_OPS = {"fill": fill, "graft": graft, "insert": insert, "mask": mask}
 
+# the kv-head dim of a cache's k and v ([n_layers, batch, max_len, heads, d])
+KV_HEAD_AXIS = 3
+
 
 # -------------------------------------------------------------- the ranks
 def _card_ids(device: torch.device, tp: int) -> list[str] | None:
@@ -142,10 +153,10 @@ def _card_ids(device: torch.device, tp: int) -> list[str] | None:
     return ids[:tp]
 
 
-def _mesh_and_sharding(cfg, tp: int, device, layout_axes: dict):
-    from ray_tpu_torch.parallel.mesh import Sharded, build_mesh, shard_params
+def _mesh_and_sharding(group, tp: int, layout_axes: dict):
+    from ray_tpu_torch.parallel.mesh import GroupMesh, Sharded, shard_params
 
-    mesh = build_mesh({"data": 1, "tensor": tp}, device)
+    mesh = GroupMesh(group, {"data": 1, "tensor": tp})
     shardings = shard_params(None, layout_axes, mesh)
 
     def specs(node):
@@ -217,7 +228,7 @@ class _Group(CommandGroup):
                     [(p, tuple(t.shape), t.dtype) for p, t in _flat(params)])
         cfg, axes, layout = self.objects(head)
         self.mesh, shardings, self.sharded = _mesh_and_sharding(
-            cfg, self.tp, self.device, axes)
+            self.group, self.tp, axes)
         full = dict(_flat(params)) if self.rank == 0 else {}
         leaves = [(path, self.broadcast(full.get(path), shape, dtype))
                   for path, shape, dtype in layout]
@@ -230,17 +241,9 @@ class TensorRanks:
     gone."""
 
     def __init__(self, tp: int, device: torch.device, cfg, params: dict):
-        import torch.distributed as dist
-
         from ray_tpu_torch._internal.spawn import child_env, fast_python_argv
         from ray_tpu_torch.parallel.mesh import free_address
 
-        if dist.is_initialized():
-            raise RuntimeError(
-                f"tp={tp}: a tensor-parallel engine starts its process's "
-                "default process group, and this process already has one "
-                "(one tensor-parallel engine a process; shut the other down "
-                "first)")
         for name, n in (("n_heads", cfg.n_heads),
                         ("n_kv_heads", cfg.n_kv_heads)):
             if n % tp:
@@ -329,6 +332,32 @@ class TensorRanks:
             self.check()
             raise RuntimeError(f"tensor-parallel op broadcast failed: {e}"
                                ) from e
+
+    def _collective(self, op: str, cache: _Cache, fn):
+        """Send the queued ops and `op` on `cache`, then run `fn` (rank 0's
+        side of the collective the followers run for `op`)."""
+        self.check()
+        self._pending.append((op, (_Ref(cache.hid),)))
+        self._flush()
+        try:
+            return fn()
+        except BaseException as e:
+            raise self.collective_failed(e) from e
+
+    def gather_rows(self, cache: _Cache) -> tuple:
+        """(k, v) of `cache` with every rank's kv heads, in rank order
+        (the tp=1 layout); new tensors, which no later step writes."""
+        return self._collective("gather", cache, lambda: tuple(
+            self._group.gather(cache[k], KV_HEAD_AXIS) for k in ("k", "v")))
+
+    def scatter_rows(self, cache: _Cache, k, v) -> None:
+        """Write each rank's kv heads of the full-head rows `k`, `v` into
+        its twin of `cache` (rank 0's into `cache`)."""
+        def run():
+            for name, full in (("k", k), ("v", v)):
+                cache[name].copy_(self._group.scatter(
+                    full, KV_HEAD_AXIS, full.shape, full.dtype))
+        self._collective("scatter", cache, run)
 
     def collective_failed(self, e: BaseException) -> BaseException:
         """The error to report for a step that raised: the follower's
@@ -425,6 +454,17 @@ def follow(rank: int, tp: int, address: str, device_type: str) -> None:
                         hid, batch, max_len, per_row = args
                         caches[hid] = new_cache(cfg, device, kv_heads, batch,
                                                 max_len, per_row)
+                    elif op == "gather":
+                        for k in ("k", "v"):
+                            group.gather(arg(args[0])[k], KV_HEAD_AXIS)
+                    elif op == "scatter":
+                        cache = arg(args[0])
+                        for k in ("k", "v"):
+                            local = cache[k]
+                            full = list(local.shape)
+                            full[KV_HEAD_AXIS] *= tp
+                            local.copy_(group.scatter(
+                                None, KV_HEAD_AXIS, full, local.dtype))
                     elif op == "step":
                         cache, tokens = arg(args[0]), arg(args[1])
                         if tokens.dim() == 1:

@@ -263,6 +263,43 @@ def test_every_module_is_walked():
     assert "ray_tpu_torch.rl.offline" in names
 
 
+# the twins of the reference's tools (ray_tpu_torch/tools/)
+_TOOLS = sorted(f[:-3] for f in os.listdir(
+    os.path.join(ROOT, "ray_tpu_torch", "tools")) if f.endswith(".py"))
+# the JAX package's records, which its tools write; a twin writes only the
+# path its caller names
+_RECORDS = ("SERVE_BENCH.json", "RL_BENCH.json", "LORA_BENCH.json",
+            "MICROBENCH.json", "ENVELOPE.json", "TPU_BENCH_CACHE",
+            "BENCH_r", "MULTICHIP_r")
+
+
+@pytest.mark.parametrize("name", _TOOLS)
+def test_tools_import_no_jax_and_write_no_reference_record(name):
+    """Every import statement of a tool, at any depth, stays off jax, optax
+    and ray_tpu, and no tool names a record of the reference's."""
+    with open(os.path.join(ROOT, "ray_tpu_torch", "tools",
+                           f"{name}.py")) as f:
+        src = f.read()
+    roots = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "optax", "ray_tpu"}, roots
+    assert not [r for r in _RECORDS if r in src], name
+
+
+def test_every_tool_is_walked():
+    names = {m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
+                                                   "ray_tpu_torch.")}
+    assert {"bench", "lora_bench", "profile_step", "mfu_sweep",
+            "mfu_decompose", "serve_bench", "rl_ppo_bench",
+            "rl_image_bench", "rl_scale_bench"} <= set(_TOOLS)
+    assert {f"ray_tpu_torch.tools.{t}" for t in _TOOLS if t != "__init__"} \
+        <= names
+
+
 # the cluster-operations layer: the autoscaler, its providers, the
 # launcher and durable workflows
 _OPS_MODULES = ("autoscaler", "autoscaler.autoscaler", "autoscaler.gcp",

@@ -283,19 +283,25 @@ def test_a_new_event_loop_rebinds_the_engine():
 
 
 def test_unported_options_raise():
-    """Tensor-parallel serving is ported: tp=2 on the CPU (a follower
-    process, gloo) serves the tp=1 engine's stream, and tp=None is one
-    device on the CPU. (tests/test_torch_serve_tp.py holds tp=2 against
-    the JAX package's.)"""
+    """Tensor-parallel serving is ported, its KV handoff too: tp=2 on the
+    CPU (a follower process, gloo) serves the tp=1 engine's stream, hands
+    its rows to the tp=1 engine, which decodes that stream from them, and
+    tp=None is one device on the CPU. (tests/test_torch_serve_tp.py and
+    tests/test_torch_serve_tp_handoff.py hold tp=2 against the JAX
+    package's.)"""
     assert tllm.LLMEngine("debug", device="cpu").tp == 1
     one = tllm.LLMEngine("debug", max_batch=2, device="cpu")
     eng = tllm.LLMEngine("debug", tp=2, max_batch=2, device="cpu",
                          params=one.params)
     try:
-        assert _collect(eng, [5, 9, 11], max_new_tokens=5) == \
-            _collect(one, [5, 9, 11], max_new_tokens=5)
-        with pytest.raises(ValueError, match="does not hand KV rows"):
-            asyncio.run(eng.prefill_only([5, 9, 11]))
+        want = _collect(one, [5, 9, 11], max_new_tokens=5)
+        assert _collect(eng, [5, 9, 11], max_new_tokens=5) == want
+
+        async def handoff():
+            payload = await eng.prefill_only([5, 9, 11])
+            return [t async for t in one.generate_prefilled(
+                [5, 9, 11], payload, max_new_tokens=5)]
+        assert asyncio.run(handoff()) == want
     finally:
         eng.shutdown()
 

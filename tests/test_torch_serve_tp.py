@@ -5,8 +5,9 @@ virtual CPU devices) with the same numpy weights, greedy streams equal token
 for token, and the four engine tests of tests/test_serve_llm.py:24-112 and
 its adapter test (:136-160) mirrored at tp=2. Parity runs in f32 (the
 ``f32`` fixture; rank 0 hands its config to the follower, so the follower
-runs f32 too). A tensor-parallel engine owns its process's default process
-group: each test shuts its engine down before the next is built."""
+runs f32 too). Each tensor-parallel engine owns a process group of its own
+and never starts the default one; several at once, and the KV handoff
+between them, are in tests/test_torch_serve_tp_handoff.py."""
 
 import asyncio
 import os

@@ -110,6 +110,19 @@ LAUNCHER_REWRITES = (
     (r"\bTPU: (\d)", r"GPU: \1"),
     (r"~/\.rayt/clusters/", "~/.ray_tpu_torch/clusters/"),
 )
+# test_perf_gate: the port's microbenchmark puts its device legs on the
+# card unless asked for the CPU, and the DAG-overhead child finds the
+# package at this checkout's root (the file names a fixed path)
+PERF_GATE_REWRITES = (
+    (r"\brun_microbenchmarks\(duration=",
+     'run_microbenchmarks(device="cpu", duration='),
+    (r'(env\["PYTHONPATH"\] = )"[^"]*"', r"\1" + repr(ROOT)),
+)
+# test_serve_load: serve_bench's in-process engine legs run on the card
+# unless asked for the CPU
+SERVE_LOAD_REWRITES = (
+    (r"\brun_(prefix_reuse|disagg)\(\)", r'run_\1(device="cpu")'),
+)
 FILE_REWRITES = {"test_rl": RL_REWRITES, "test_sac": RL_REWRITES,
                  "test_rl_multi_agent": RL_REWRITES,
                  "test_train": TRAIN_REWRITES,
@@ -128,12 +141,21 @@ FILE_REWRITES = {"test_rl": RL_REWRITES, "test_sac": RL_REWRITES,
                  "test_native_store_stress": REPO_PATH_REWRITES,
                  "test_chaos": BARE_NAME_REWRITES + RL_REWRITES,
                  "test_rl_offline": RL_REWRITES,
-                 "test_tune": TRAIN_REWRITES + TUNE_REWRITES}
+                 "test_tune": TRAIN_REWRITES + TUNE_REWRITES,
+                 "test_perf_gate": PERF_GATE_REWRITES,
+                 "test_serve_load": SERVE_LOAD_REWRITES}
 
 # helper modules outside tests/ that a file imports from the repo: each is
-# copied with REWRITES to the same relative path beside the copy (the
-# file finds it from its own path: test_chaos puts ../tools on sys.path)
-SUPPORT_FILES = {"test_chaos": ("tools/chaos.py", "tools/envelope_bench.py")}
+# copied with REWRITES beside the copy (the file finds it from its own
+# path: test_chaos puts ../tools on sys.path), to the same relative path,
+# or, given as (source, destination), from the port's twin of the
+# reference's tool to where the reference's tool sits
+_ENVELOPE = "tools/envelope_bench.py"
+SUPPORT_FILES = {"test_chaos": ("tools/chaos.py", _ENVELOPE),
+                 "test_shuffle_envelope": (_ENVELOPE,),
+                 "test_scale_envelope": (_ENVELOPE,),
+                 "test_serve_load": (("ray_tpu_torch/tools/serve_bench.py",
+                                      "tools/serve_bench.py"),)}
 
 # a string literal that would start the reference package in another
 # process: a module name on its own (what `-m` takes) or an import
@@ -397,12 +419,13 @@ def run_repointed(name: str, n_tests: int, tmp_path, timeout: float,
     work.mkdir(exist_ok=True)
     target = str(work) if only is None else f"{name}.py::{only}"
     (work / f"{name}.py").write_text(copy)
-    for rel in SUPPORT_FILES.get(name, ()):
-        with open(os.path.join(ROOT, rel)) as f:
+    for entry in SUPPORT_FILES.get(name, ()):
+        src, dst = (entry, entry) if isinstance(entry, str) else entry
+        with open(os.path.join(ROOT, src)) as f:
             support = repoint(f.read())
-        assert not strings_starting_the_reference(support), rel
-        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
-        (tmp_path / rel).write_text(support)
+        assert not strings_starting_the_reference(support), src
+        (tmp_path / dst).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / dst).write_text(support)
     (work / "conftest.py").write_text(CONFTEST.format(root=ROOT))
     report, xml = work / "imports.json", work / "junit.xml"
     # the repo's root on the path, as where the reference runs from it: a

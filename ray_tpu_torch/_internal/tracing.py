@@ -193,7 +193,8 @@ def to_chrome_trace(events: list[dict]) -> dict:
     Accepts coalesced task records (GCS task manager, carry a "states"
     map -> nested lifecycle slices), otel spans (otel.py read_spans
     dicts, carry "start_ns" — per-tick DAG spans land here, grouped by
-    pid and stitched by trace id), and legacy flat duration events
+    pid and stitched by trace id; hot-path phases by pid and thread), and
+    legacy flat duration events
     (single "X" each); meta events are skipped.
     """
     trace_events: list[dict] = []
@@ -210,7 +211,9 @@ def to_chrome_trace(events: list[dict]) -> dict:
                 "dur": max(1, (ev.get("end_ns", ev["start_ns"])
                                - ev["start_ns"]) // 1000),
                 "pid": f"pid:{ev.get('pid', '?')}",
-                "tid": f"trace:{(ev.get('trace_id') or '?')[:8]}",
+                # phases (otel.phase) carry their thread: one row each
+                "tid": (f"thread:{ev['thread']}" if "thread" in ev else
+                        f"trace:{(ev.get('trace_id') or '?')[:8]}"),
                 "args": {"trace_id": ev.get("trace_id", ""),
                          "span_id": ev.get("span_id", ""),
                          "parent_id": ev.get("parent_id"),

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 # registers the ray_tpu_torch::flash_fwd op that remat_save_attn names
 import ray_tpu_torch.ops.cuda.flash_attention  # noqa: F401
+from ray_tpu_torch._internal import otel
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import (NEG_INF, _repeat_kv,
                                          dot_product_attention)
@@ -637,7 +638,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     A rope position past the table (``max_seq_len``) raises ValueError,
     before anything is written: the reference gathers NaN there, and on
     the card the gather is a device-side assert. The check reads the
-    largest position back to the host (one small copy per call).
+    largest position back to the host (one small copy per call, the phase
+    ``llama.position_check``).
 
     Inside a tensor-parallel engine's sharding context
     (``parallel.mesh.use_sharding``) every rank of the tensor group calls it
@@ -663,7 +665,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     else:
         # rope positions are relative to each row's first real token
         positions = (abs_positions - start[:, None]).clamp(min=0)
-    last = int(positions.max())
+    with otel.phase("llama.position_check"):
+        last = int(positions.max())
     if last >= cfg.max_seq_len:
         raise ValueError(
             f"rope position {last} is past the table of max_seq_len="

@@ -10,6 +10,11 @@ Usage:
     step, state = build_train_step(loss_fn, adamw(3e-4), params, axes, mesh)
     state, metrics = step(state, shard_batch(batch, mesh))
 
+Each step names its parts as hot-path phases (``_internal/otel.phase``):
+``train.step`` on the host, and under it ``train.forward``,
+``train.backward`` and ``train.optimizer``, whose device spans tile the
+step on the stream.
+
 The step updates the parameters and the optimizer state in place (the
 reference donates its state buffers to the same end), so a parameter keeps
 its dtype across steps. The state owns a copy of the params and its
@@ -39,6 +44,7 @@ from typing import Any, Callable
 
 import torch
 
+from ray_tpu_torch._internal import otel
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.parallel import collectives as col
 from ray_tpu_torch.parallel.mesh import (AXIS_SEQ, BATCH_AXES, NamedSharding,
@@ -138,23 +144,29 @@ def build_train_step(loss_fn: Callable, optimizer: Callable, params: dict,
         state["frozen"] = frozen
 
     def step(state: dict, batch: dict):
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        full = ({**state["frozen"], **state["params"]} if "frozen" in state
-                else state["params"])
-        opt = state["opt_state"]
-        opt.zero_grad(set_to_none=True)
-        aux_sum = None
-        for mb in (_split_batch(batch, grad_accum) if grad_accum > 1
-                   else [batch]):
-            loss, aux = loss_fn(full, mb)
-            (loss / grad_accum).backward()
-            aux = {k: v.detach() for k, v in aux.items()}
-            aux_sum = aux if aux_sum is None else {
-                k: aux_sum[k] + aux[k] for k in aux}
-        aux = {k: v / grad_accum if grad_accum > 1 else v
-               for k, v in aux_sum.items()}
-        opt.step()
-        return {**state, "step": state["step"] + 1}, aux
+        with otel.phase("train.step"):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            full = ({**state["frozen"], **state["params"]}
+                    if "frozen" in state else state["params"])
+            opt = state["opt_state"]
+            # launches nothing; here, a failed step's partial gradients
+            # never reach the next one
+            opt.zero_grad(set_to_none=True)
+            aux_sum = None
+            for mb in (_split_batch(batch, grad_accum) if grad_accum > 1
+                       else [batch]):
+                with otel.phase("train.forward", device=dev):
+                    loss, aux = loss_fn(full, mb)
+                with otel.phase("train.backward", device=dev):
+                    (loss / grad_accum).backward()
+                aux = {k: v.detach() for k, v in aux.items()}
+                aux_sum = aux if aux_sum is None else {
+                    k: aux_sum[k] + aux[k] for k in aux}
+            aux = {k: v / grad_accum if grad_accum > 1 else v
+                   for k, v in aux_sum.items()}
+            with otel.phase("train.optimizer", device=dev):
+                opt.step()
+            return {**state, "step": state["step"] + 1}, aux
 
     return step, state
 
@@ -300,25 +312,31 @@ def _build_mesh_step(loss_fn, optimizer, params, logical_axes, mesh, rules,
         state["frozen"] = frozen
 
     def step(state: dict, batch: dict):
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        full = ({**state["frozen"], **state["params"]} if "frozen" in state
-                else state["params"])
-        opt = state["opt_state"]
-        opt.zero_grad(set_to_none=True)
-        aux_sum = None
-        with use_sharding(sharded):
-            for mb in (_split_batch(batch, grad_accum) if grad_accum > 1
-                       else [batch]):
-                loss, aux = loss_fn(full, mb)
-                weighted, aux = _global_loss(sharded, loss, aux)
-                (weighted / grad_accum).backward()
-                aux_sum = aux if aux_sum is None else {
-                    k: aux_sum[k] + aux[k] for k in aux}
-        _reduce_grads(sharded, _leaves(state["params"]), axes_of)
-        aux = {k: v / grad_accum if grad_accum > 1 else v
-               for k, v in aux_sum.items()}
-        opt.step()
-        return {**state, "step": state["step"] + 1}, aux
+        with otel.phase("train.step"):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            full = ({**state["frozen"], **state["params"]}
+                    if "frozen" in state else state["params"])
+            opt = state["opt_state"]
+            opt.zero_grad(set_to_none=True)
+            aux_sum = None
+            with use_sharding(sharded):
+                for mb in (_split_batch(batch, grad_accum) if grad_accum > 1
+                           else [batch]):
+                    with otel.phase("train.forward", device=dev):
+                        loss, aux = loss_fn(full, mb)
+                        weighted, aux = _global_loss(sharded, loss, aux)
+                    with otel.phase("train.backward", device=dev):
+                        (weighted / grad_accum).backward()
+                    aux_sum = aux if aux_sum is None else {
+                        k: aux_sum[k] + aux[k] for k in aux}
+            # the gradients' sums over the batch axes close the backward
+            with otel.phase("train.backward", device=dev):
+                _reduce_grads(sharded, _leaves(state["params"]), axes_of)
+            aux = {k: v / grad_accum if grad_accum > 1 else v
+                   for k, v in aux_sum.items()}
+            with otel.phase("train.optimizer", device=dev):
+                opt.step()
+            return {**state, "step": state["step"] + 1}, aux
 
     return step, state
 

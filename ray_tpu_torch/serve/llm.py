@@ -13,6 +13,13 @@ sampling stream is an explicit ``torch.Generator``. Steps run on executor
 threads under ``torch.inference_mode()``, entered inside each thread
 function (the mode is thread-local).
 
+Each round of the engine loop names its parts as hot-path phases
+(``_internal/otel.phase``): ``engine.round`` on the loop thread, and under
+it ``engine.wait`` (blocked with no slot busy), ``engine.admit`` and
+``engine.prefill`` per request, ``engine.decode``, ``engine.sync`` (the
+host blocked reading the sampled tokens back) and ``engine.emit``. Admit,
+prefill and decode carry device spans.
+
 Params may carry a ``"lora"`` adapter subtree: ``decode_step`` applies the
 low-rank path in every prefill and decode step. ``MultiplexedLoraService``
 keeps one engine per adapter id behind the multiplex LRU, all over one set of
@@ -39,6 +46,7 @@ process group of its own, so several live in one process. A KV handoff
 from __future__ import annotations
 
 import asyncio
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -48,6 +56,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._internal import otel
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import lora as lora_mod
@@ -81,6 +90,12 @@ class _Request:
     # prefill_only: deliver the finished small cache as the result instead
     # of decoding from it
     handoff_out: bool = False
+    # the id its admit and prefill phases carry (the ingress's request id
+    # where one was minted, else the engine's own count)
+    phase_id: Any = None
+    # its engine.prefill phases, whose device spans it sums once the
+    # prefill's sampled token has been read back
+    prefill_phases: list = field(default_factory=list)
 
 
 @dataclass
@@ -219,6 +234,7 @@ class LLMEngine:
         self.prefix_misses = 0
         self.prefix_hit_tokens = 0   # prefill tokens skipped via reuse
         self.kv_handoffs = 0         # rows admitted from another engine
+        self._phase_ids = itertools.count(1)
 
     def _fresh_slot_buffers(self):
         """Current tokens [b], temperatures [b, 1] and which slots hold a
@@ -350,6 +366,8 @@ class LLMEngine:
                              f"vocabulary [0, {self.cfg.vocab_size})")
 
     async def _submit(self, req: _Request):
+        req.phase_id = ((req.obs or {}).get("request_id")
+                        or next(self._phase_ids))
         if req.obs is not None:
             # queue_s / ttft measure from here: the engine saw the request
             req.obs["gen_start"] = time.perf_counter()
@@ -428,40 +446,49 @@ class LLMEngine:
         # NEW loop's queue; a stale loop reading it would steal and fail
         # the new loop's requests
 
-        async def _admit(req: _Request):
+        async def _admit(req: _Request, parent: int):
             try:
-                await loop.run_in_executor(None, self._admit, req, epoch)
+                await loop.run_in_executor(None, self._admit, req, epoch,
+                                           parent)
             except Exception as e:
                 req.loop.call_soon_threadsafe(req.out.put_nowait, e)
 
         while epoch == self._epoch:
-            if not any(s is not None for s in self._slots):
-                # idle: block until work arrives (no spinning)
-                await _admit(await queue.get())
-            # opportunistic refill of every free slot, no waiting
-            while (not queue.empty()
-                   and any(s is None for s in self._slots)):
-                await _admit(queue.get_nowait())
-            if self._pending_prefills:
-                # one chunk per round: a long prompt costs active streams
-                # ~one chunk of latency per step, not the whole-prompt stall
-                try:
-                    await loop.run_in_executor(
-                        None, self._advance_prefill, epoch)
-                except Exception:
-                    if epoch != self._epoch:
-                        return
-            if any(s is not None and s.emitted >= 0
-                   for s in self._slots):
-                try:
-                    await loop.run_in_executor(
-                        None, self._decode_step_all, epoch)
-                except Exception:
-                    # _poison_recover already failed the active requests and
-                    # reset the cache; an epoch mismatch means a newer loop
-                    # owns the engine: stop
-                    if epoch != self._epoch:
-                        return
+            # executor threads do not carry context variables: the round's
+            # phases there name it as their parent explicitly
+            with otel.phase("engine.round") as rnd:
+                if not any(s is not None for s in self._slots):
+                    # idle: block until work arrives (no spinning)
+                    with otel.phase("engine.wait"):
+                        req = await queue.get()
+                    await _admit(req, rnd.span_id)
+                # opportunistic refill of every free slot, no waiting
+                while (not queue.empty()
+                       and any(s is None for s in self._slots)):
+                    await _admit(queue.get_nowait(), rnd.span_id)
+                if self._pending_prefills:
+                    # one chunk per round: a long prompt costs active
+                    # streams ~one chunk of latency per step, not the
+                    # whole-prompt stall
+                    try:
+                        await loop.run_in_executor(
+                            None, self._advance_prefill, epoch,
+                            rnd.span_id)
+                    except Exception:
+                        if epoch != self._epoch:
+                            return
+                if any(s is not None and s.emitted >= 0
+                       for s in self._slots):
+                    try:
+                        await loop.run_in_executor(
+                            None, self._decode_step_all, epoch,
+                            rnd.span_id)
+                    except Exception:
+                        # _poison_recover already failed the active
+                        # requests and reset the cache; an epoch mismatch
+                        # means a newer loop owns the engine: stop
+                        if epoch != self._epoch:
+                            return
 
     # ------------------------------------------------------- the hot path
     def _ensure_decode_cache(self):
@@ -476,27 +503,40 @@ class LLMEngine:
         self._slots[i] = None  # row's temp/token are garbage-masked
         self._live[i] = False
 
-    def _admit(self, req: _Request, epoch: int):
+    def _admit(self, req: _Request, epoch: int,
+               parent: Optional[int] = None):
         """Prefill one request (batch 1, one bucket) and graft its KV rows
         into a free slot of the persistent decode cache."""
         with self._mutex, torch.inference_mode():
             if epoch != self._epoch:
                 raise RuntimeError("engine restarted during admission")
-            self._admit_locked(req)
+            with otel.phase("engine.admit", device=self.device,
+                            parent=parent, request_id=req.phase_id):
+                self._admit_locked(req)
 
     def _small_cache(self, bucket: int, start: int) -> dict:
         small = self._new_cache(1, bucket)
         self._dev("fill", small, "start", start)
         return small
 
-    def _prefill_step(self, req: _Request, small: dict,
-                      tokens: np.ndarray) -> tuple[torch.Tensor, dict]:
-        temps1 = torch.tensor([[req.temperature]], dtype=torch.float32,
-                              device=self.device)
+    def _prefill_step(self, req: _Request, small: dict, tokens: np.ndarray,
+                      bucket: int, parent: Optional[int] = None
+                      ) -> tuple[torch.Tensor, dict]:
+        """One prefill call, a chunk or the whole prompt: the phase
+        ``engine.prefill``. The stamp ``prefill_s`` adds the host time of
+        the call, which is its dispatch plus any sync inside, not the
+        chunk's device time: ``prefill_device_s`` (``_finish_prefill``)
+        is that."""
         t_pf = time.perf_counter()
-        nxt, small = self._step(self.params, small,
-                                torch.from_numpy(tokens).to(self.device),
-                                temps1)
+        with otel.phase("engine.prefill", device=self.device, parent=parent,
+                        request_id=req.phase_id, tokens=int(tokens.shape[1]),
+                        bucket=bucket) as ph:
+            temps1 = torch.tensor([[req.temperature]], dtype=torch.float32,
+                                  device=self.device)
+            nxt, small = self._step(self.params, small,
+                                    torch.from_numpy(tokens).to(self.device),
+                                    temps1)
+        req.prefill_phases.append(ph)
         obs = req.obs
         if obs is not None:
             obs["prefill_s"] = obs.get("prefill_s", 0.0) + (
@@ -547,7 +587,8 @@ class LLMEngine:
                     req=req, slot=slot, prompts=prompts, small=small,
                     bucket=bucket, pos=pos0))
                 return
-            nxt, small = self._prefill_step(req, small, prompts[:, pos0:])
+            nxt, small = self._prefill_step(req, small, prompts[:, pos0:],
+                                            bucket)
             self.prefills += 1
             self._finish_prefill(req, slot, small, int(nxt[0]), bucket,
                                  start)
@@ -571,7 +612,7 @@ class LLMEngine:
                 req=req, slot=slot, prompts=prompts, small=small,
                 bucket=bucket, pos=skip))
             return
-        nxt, small = self._prefill_step(req, small, prompts)
+        nxt, small = self._prefill_step(req, small, prompts, bucket)
         self.prefills += 1
         self._finish_prefill(req, slot, small, int(nxt[0]), bucket, start)
 
@@ -638,7 +679,7 @@ class LLMEngine:
                              int(h["bucket"]), int(h["start"]),
                              store=False)
 
-    def _advance_prefill(self, epoch: int):
+    def _advance_prefill(self, epoch: int, parent: Optional[int] = None):
         with self._mutex, torch.inference_mode():
             if epoch != self._epoch or not self._pending_prefills:
                 return
@@ -646,7 +687,8 @@ class LLMEngine:
             try:
                 chunk = min(self.prefill_chunk, pf.bucket - pf.pos)
                 nxt, pf.small = self._prefill_step(
-                    pf.req, pf.small, pf.prompts[:, pf.pos:pf.pos + chunk])
+                    pf.req, pf.small, pf.prompts[:, pf.pos:pf.pos + chunk],
+                    pf.bucket, parent)
                 pf.pos += chunk
                 self.prefill_chunks += 1
                 if pf.pos < pf.bucket:
@@ -677,7 +719,14 @@ class LLMEngine:
     def _finish_prefill(self, req: _Request, slot: int, small, first: int,
                         bucket: int, start: int, store: bool = True):
         """Deliver the prefill's sampled token and graft the KV rows into
-        the slot (callers hold _mutex)."""
+        the slot (callers hold _mutex). ``first`` has been read back, so
+        the prefill's device spans have resolved: their sum is the stamp
+        ``prefill_device_s``."""
+        if req.obs is not None and req.prefill_phases:
+            dev_s = otel.phase_device_s(req.prefill_phases)
+            if dev_s is not None:
+                req.obs["prefill_device_s"] = dev_s
+        req.prefill_phases = []
         if store:
             self._prefix_put(req.tokens, small, bucket)
         if req.handoff_out:
@@ -742,27 +791,36 @@ class LLMEngine:
         self._decode_cache = None
         self._cur, self._temps, self._live = self._fresh_slot_buffers()
 
-    def _decode_step_all(self, epoch: int):
+    def _decode_step_all(self, epoch: int, parent: Optional[int] = None):
         with self._mutex, torch.inference_mode():
             if epoch != self._epoch:
                 raise RuntimeError("engine restarted during decode")
-            self._decode_step_locked()
+            self._decode_step_locked(parent)
 
-    def _decode_step_locked(self):
+    def _decode_step_locked(self, parent: Optional[int] = None):
         """One decode step across all slots (free rows compute masked
         garbage: the price of one fixed batch shape)."""
-        try:
-            nxt, self._decode_cache = self._step(
-                self.params, self._decode_cache, self._cur, self._temps)
-        except BaseException:
-            self._poison_recover()
-            raise
-        # a free or reserved row stays at depth 0: left to advance one slot
-        # a step, it would pass the rope table after max_seq_len idle steps
-        # (the reference then parks NaN K/V where the next request reads)
-        self._dev("mask", self._decode_cache, self._live)
-        self._cur.copy_(nxt)  # stays on the device for the next step
-        toks = nxt.tolist()   # host sync: this step's sampled tokens
+        with otel.phase("engine.decode", device=self.device, parent=parent):
+            try:
+                nxt, self._decode_cache = self._step(
+                    self.params, self._decode_cache, self._cur, self._temps)
+            except BaseException:
+                self._poison_recover()
+                raise
+            # a free or reserved row stays at depth 0: left to advance one
+            # slot a step, it would pass the rope table after max_seq_len
+            # idle steps (the reference then parks NaN K/V where the next
+            # request reads)
+            self._dev("mask", self._decode_cache, self._live)
+            self._cur.copy_(nxt)  # stays on the device for the next step
+        with otel.phase("engine.sync", parent=parent):
+            toks = nxt.tolist()   # host sync: this step's sampled tokens
+        with otel.phase("engine.emit", parent=parent):
+            self._emit(toks)
+
+    def _emit(self, toks: list):
+        """Deliver one decode step's tokens to their requests' consumers
+        and free the slots that finished."""
         self.batches += 1
         # occupancy of THIS step, stamped into each participant's obs:
         # mean over a request's steps = how full its decode batches ran

@@ -169,7 +169,10 @@ def _reset_request_obs(token):
 def engine_section(obs: Optional[dict]) -> Optional[dict]:
     """Fold an engine-stamped observation dict into the record's
     ``engine`` section (replica side, after the handler returns).
-    Returns None when the engine never touched the request."""
+    ``prefill_s`` is the host time of the request's prefill calls (their
+    dispatch plus any sync inside them), ``prefill_device_s`` their time
+    on the card (absent on the CPU). Returns None when the engine never
+    touched the request."""
     if not obs or "gen_start" not in obs:
         return None
     first = obs.get("first_token")
@@ -178,6 +181,7 @@ def engine_section(obs: Optional[dict]) -> Optional[dict]:
     out = {
         "queue_s": obs.get("queue_s"),
         "prefill_s": obs.get("prefill_s"),
+        "prefill_device_s": obs.get("prefill_device_s"),
         "prefill_chunks": int(obs.get("prefill_chunks", 0)),
         "tokens": tokens,
         "decode_steps": int(obs.get("decode_steps", 0)),

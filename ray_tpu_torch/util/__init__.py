@@ -2,13 +2,16 @@
 collectives (ref analog: python/ray/util/). ``util.collective`` carries
 rendezvous, barriers and numpy allreduce/allgather/broadcast between
 processes over TCP; the device plane is the torch.distributed collectives
-inside the mesh (``ray_tpu_torch.parallel``)."""
+inside the mesh (``ray_tpu_torch.parallel``). ``phase_spans`` reads the
+process's hot-path phases (the engine round's and the train step's parts,
+``_internal/otel.phase``)."""
 
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["ActorPool", "Queue", "metrics", "builtin_metrics", "collective"]
+__all__ = ["ActorPool", "Queue", "metrics", "builtin_metrics", "collective",
+           "phase_spans"]
 
 
 def __getattr__(name):
@@ -18,6 +21,10 @@ def __getattr__(name):
         from ray_tpu_torch.util.actor_pool import ActorPool
 
         return ActorPool
+    if name == "phase_spans":
+        from ray_tpu_torch._internal.otel import phase_spans
+
+        return phase_spans
     if name == "Queue":
         from ray_tpu_torch.util.queue import Queue
 
